@@ -1,0 +1,612 @@
+"""The ``AcceleratorTarget`` plugin API.
+
+The paper's thesis is that the ILA, as a formal software/hardware interface,
+makes compiler + simulator support for a *new prototype accelerator* mostly
+derivable: write the ILA and the IR-accelerator mappings, and flexible
+matching, code generation and application-level validation come for free.
+This module is that thesis as an API: one object per accelerator owning
+
+* its :class:`~repro_torch.core.ila.ILA` model and per-target fragment cache,
+* its IR -> intrinsic rewrites (pattern + guard + target attribution),
+* its intrinsic **planners** (op -> ``SimJob`` list + assemble fn, with the
+  setup/data-stream split and driver chunking),
+* its numerics/ideal reference hooks (shape + fp32-oracle semantics fed to
+  the IR layer) and optional deployment kernels,
+* its :class:`CostModel` — per-intrinsic analytic costs (interface command
+  count, bytes moved, estimated cycles) derived from operand shapes, which
+  drive cost-based extraction and the Executor's multi-device scheduler,
+* its VT1–VT3 validation declarations (conformance samples, VT2 fragment
+  pairs, VT3 ILA-vs-kernel checks, Table-2 mapping cases).
+
+Registering the target (:func:`register_target`) wires all of it into the
+registry-driven core: ``rules.accelerator_rewrites`` /
+``compile.compile_program`` enumerate targets, ``codegen.Executor``
+dispatches planning through the registry, ``validate`` runs whatever each
+target declares, and the conformance suite (``tests/test_target_conformance``)
+covers every declared intrinsic — a fourth backend needs zero edits to
+``core/`` (see ``docs/targets.md`` for a worked example).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core import ir
+from ..core.egraph import Rewrite
+from ..core.ila import (
+    ILA,
+    TARGETS,
+    CompiledFragment,
+    DataStream,
+    FragmentCache,
+    FusedRunner,
+)
+
+
+@dataclasses.dataclass
+class SimJob:
+    """One fragment invocation: a data stream to run against a compiled
+    fragment, a batch-polymorphic full-region read, and the valid output
+    window."""
+
+    frag: CompiledFragment
+    data: DataStream
+    read: Callable
+    window: Tuple
+
+
+@dataclasses.dataclass
+class PlanContext:
+    """What the Executor hands a planner: stat recording + per-target
+    execution options (e.g. ``{"wgt_bits": 16}`` for HLSCNN's updated
+    design), the device the Executor runs on (where deployment kernels
+    launch), plus the driver-tiling helpers planners share."""
+
+    record: Callable[..., None]
+    options: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    device: torch.device = torch.device("cpu")
+
+    @staticmethod
+    def chunk_rows(x: np.ndarray, max_rows: int) -> List[np.ndarray]:
+        return [x[i : i + max_rows] for i in range(0, x.shape[0], max_rows)]
+
+    @staticmethod
+    def ncmds(jobs: Sequence[SimJob]) -> int:
+        return sum(len(j.frag.setup) + len(j.data) for j in jobs)
+
+    @staticmethod
+    def data_ncmds(jobs: Sequence[SimJob]) -> int:
+        """Per-invocation (steady-state) command count: the data streams
+        only, excluding the cached setup load. This is the volume the
+        pipelined engine's pack and sim stages both scale with, and what
+        :class:`GroupTiming` records for latency calibration."""
+        return sum(len(j.data) for j in jobs)
+
+
+@dataclasses.dataclass
+class GroupTiming:
+    """Measured wall-clock of one scheduled SimJob group, recorded by the
+    Executor: ``pack_s`` is the host stage (planner packing, vectorized
+    numpy), ``sim_s`` the dispatch-to-materialization stage (a synchronous
+    engine times it exactly; the pipelined engine leaves it 0 because sims
+    overlap). ``CostModel.calibrate_from_timings`` fits per-stage latency
+    models from these."""
+
+    target: str
+    n_jobs: int
+    n_commands: int
+    pack_s: float = 0.0
+    sim_s: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class CostEstimate:
+    """Predicted cost of one intrinsic invocation (or one SimJob batch).
+
+    ``commands``     interface commands issued (MMIO writes), after any
+                     per-op calibration scale;
+    ``bytes_moved``  host<->device traffic in bytes;
+    ``cycles``       estimated device cycles (command issue + compute);
+    ``raw_commands`` the uncalibrated analytic command prediction —
+                     what ``CostModel.calibrate`` fits against, so repeated
+                     calibration converges regardless of the scale in
+                     effect when the estimate was recorded.
+    """
+
+    commands: float
+    bytes_moved: float
+    cycles: float
+    raw_commands: float = 0.0
+
+    def __add__(self, other: "CostEstimate") -> "CostEstimate":
+        return CostEstimate(
+            self.commands + other.commands,
+            self.bytes_moved + other.bytes_moved,
+            self.cycles + other.cycles,
+            self.raw_commands + other.raw_commands,
+        )
+
+
+class CostModel:
+    """A target's declared analytic cost model, one pricing rule per
+    intrinsic: ``fn(attrs, child_shapes) -> (commands, bytes_moved,
+    compute_cycles)``. ILA models every accelerator through one uniform
+    command interface, so cost decomposes uniformly too:
+
+        cycles = cycles_per_command * commands + compute_cycles
+
+    ``commands`` is the analytically predicted interface command count for
+    the shapes at hand; :meth:`calibrate` fits a per-op correction from the
+    *observed* command counts the Executor records (``Executor.stats``), so
+    the analytic model converges on what the planners actually emit.
+    Extraction (``core/compile.make_cost_fn``) and the Executor's device
+    scheduler consume :meth:`estimate` / :meth:`job_cycles`.
+    """
+
+    def __init__(self, target: str, cycles_per_command: float = 1.0):
+        self.target = target
+        self.cycles_per_command = float(cycles_per_command)
+        self._ops: Dict[str, Callable] = {}
+        #: per-op multiplicative correction on the predicted command count,
+        #: fitted by :meth:`calibrate` (1.0 = uncalibrated analytic model)
+        self.command_scale: Dict[str, float] = {}
+        #: wall-clock latency model fitted by :meth:`calibrate_from_timings`
+        #: (empty = uncalibrated; keys: ``{pack,sim}_us_per_command``,
+        #: ``{pack,sim}_overhead_us``, ``n_groups``). Once fitted, one
+        #: "cycle" of this model means one microsecond of measured latency.
+        self.latency: Dict[str, float] = {}
+        #: streaming predicted-vs-actual drift accumulators fed by
+        #: :meth:`record_drift` (count / log-ratio sums / extremes)
+        self._drift = [0, 0.0, 0.0, float("inf"), float("-inf")]
+
+    def record_drift(self, predicted_cycles: float, actual_us: float) -> None:
+        """One drift observation: the scheduler priced a group at
+        ``predicted_cycles`` and its simulation measured ``actual_us``.
+        On a latency-calibrated model (1 cycle == 1 us) the ratio
+        ``actual / predicted`` is the mispricing factor the admission
+        controller and LPT placement are operating under; before
+        calibration it is the analytic-to-wall-clock conversion. Ratios
+        accumulate in log space so over- and under-prediction average
+        symmetrically."""
+        if predicted_cycles <= 0 or actual_us <= 0:
+            return
+        r = float(actual_us) / float(predicted_cycles)
+        lr = math.log(r)
+        d = self._drift
+        d[0] += 1
+        d[1] += lr
+        d[2] += lr * lr
+        d[3] = min(d[3], r)
+        d[4] = max(d[4], r)
+
+    def drift_summary(self) -> Optional[Dict[str, float]]:
+        """Aggregate predicted-vs-actual drift: geometric-mean ratio of
+        actual microseconds to predicted cycles, its log-space spread, and
+        the extremes. None until :meth:`record_drift` has observations.
+        A calibrated model tracking reality sits near ``ratio_geomean``
+        1.0; a drifting one is the signal to re-run
+        ``calibrate_from_timings``."""
+        n, s, s2, lo, hi = self._drift
+        if n == 0:
+            return None
+        mean = s / n
+        var = max(0.0, s2 / n - mean * mean)
+        return {
+            "n": float(n),
+            "ratio_geomean": math.exp(mean),
+            "log_ratio_std": math.sqrt(var),
+            "ratio_min": lo,
+            "ratio_max": hi,
+            "calibrated": 1.0 if self.latency else 0.0,
+        }
+
+    def reset_drift(self) -> None:
+        self._drift = [0, 0.0, 0.0, float("inf"), float("-inf")]
+
+    def op(self, name: str):
+        """Decorator registering the pricing rule for intrinsic ``name``."""
+
+        def deco(fn):
+            self._ops[name] = fn
+            return fn
+
+        return deco
+
+    def covers(self, op: str) -> bool:
+        return op in self._ops
+
+    def ops(self) -> List[str]:
+        return list(self._ops)
+
+    def estimate(self, op: str, attrs, child_shapes) -> CostEstimate:
+        """Price one invocation of ``op`` on operands of ``child_shapes``."""
+        fn = self._ops[op]
+        raw, nbytes, compute = fn(
+            dict(attrs or {}), [tuple(s) for s in child_shapes]
+        )
+        commands = float(raw) * self.command_scale.get(op, 1.0)
+        cycles = self.cycles_per_command * commands + float(compute)
+        return CostEstimate(commands, float(nbytes), cycles, float(raw))
+
+    def job_cycles(self, n_commands: float, pipelined: bool = False) -> float:
+        """Scheduler estimate for a SimJob batch of ``n_commands`` interface
+        commands (the compute term is already proportional to the data
+        stream for every bundled fragment, so commands dominate ranking).
+
+        With a fitted :attr:`latency` model the estimate is measured
+        microseconds. ``pipelined=True`` prices the group for a pipelined
+        engine, where host packing overlaps device simulation: the group
+        occupies the pipeline for ``max(pack, sim)`` rather than their sum
+        (sum without overlap). Uncalibrated models have no pack term, so
+        both forms reduce to the analytic ``cycles_per_command * n``.
+        """
+        n = float(n_commands)
+        if self.latency:
+            sim = (
+                self.latency.get("sim_us_per_command", self.cycles_per_command) * n
+                + self.latency.get("sim_overhead_us", 0.0)
+            )
+            pack = (
+                self.latency.get("pack_us_per_command", 0.0) * n
+                + self.latency.get("pack_overhead_us", 0.0)
+            )
+            return max(pack, sim) if pipelined else pack + sim
+        return self.cycles_per_command * n
+
+    def calibrate_from_timings(self, timings) -> Dict[str, float]:
+        """Fit the wall-clock latency model from measured per-group timings
+        (:class:`GroupTiming`, recorded in ``Executor.stats``-side logs).
+
+        Each stage (host pack, device sim) is fitted as an affine model
+        ``seconds ~= overhead + s_per_command * n_commands`` by least
+        squares over this target's groups; negative slopes/intercepts from
+        degenerate samples are clamped to a through-origin ratio fit. The
+        fit lives in :attr:`latency` — the measured-latency replacement for
+        the analytic per-command cost — and ``job_cycles`` switches to it
+        (in microseconds: **1 cycle == 1 us** once fitted), so the
+        scheduler ranks groups by measured latency (the ROADMAP's learned
+        cost-model step) and the pipelined scheduler prices groups as
+        ``max(pack, sim)``. :attr:`cycles_per_command` itself is left in
+        analytic units on purpose: ``estimate()`` feeds *extraction*, which
+        compares costs across targets, and rescaling one target's cycles to
+        microseconds while competitors stay analytic would make those
+        comparisons incommensurate. Returns the fitted model (empty if this
+        target has no usable timings yet).
+        """
+
+        def affine(pts: List[Tuple[float, float]]) -> Optional[Tuple[float, float]]:
+            if not pts:
+                return None
+            xs = np.asarray([p[0] for p in pts], np.float64)
+            ys = np.asarray([p[1] for p in pts], np.float64)
+            if len(pts) >= 2 and float(np.ptp(xs)) > 0:
+                slope, intercept = np.polyfit(xs, ys, 1)
+                if slope > 0 and intercept >= 0:
+                    return float(slope), float(intercept)
+            return float(ys.sum() / xs.sum()), 0.0
+
+        sims, packs = [], []
+        for t in timings:
+            if t.target != self.target or t.n_commands <= 0:
+                continue
+            if t.sim_s > 0:
+                sims.append((float(t.n_commands), t.sim_s))
+            if t.pack_s > 0:
+                packs.append((float(t.n_commands), t.pack_s))
+        sim_fit, pack_fit = affine(sims), affine(packs)
+        if sim_fit is not None:
+            self.latency["sim_us_per_command"] = sim_fit[0] * 1e6
+            self.latency["sim_overhead_us"] = sim_fit[1] * 1e6
+        if pack_fit is not None:
+            self.latency["pack_us_per_command"] = pack_fit[0] * 1e6
+            self.latency["pack_overhead_us"] = pack_fit[1] * 1e6
+        if sim_fit is not None or pack_fit is not None:
+            self.latency["n_groups"] = float(len(sims) + len(packs))
+            # pricing just changed: drift observed under the old model no
+            # longer measures this model's error
+            self.reset_drift()
+        return dict(self.latency)
+
+    def calibrate(self, stats) -> Dict[str, float]:
+        """Fit per-op command-count scales from ``Executor.stats``.
+
+        Each :class:`~repro_torch.core.codegen.InvocationStat` carries the
+        analytic prediction made at plan time (``stat.est``) and the
+        observed interface command count (``stat.n_commands``); the fit is
+        the per-op ratio of total observed to total predicted commands
+        (so invocations weigh in proportion to their command volume),
+        against the *raw* (uncalibrated) predictions — re-calibrating over
+        stats recorded under any mix of earlier scales converges instead
+        of compounding. Invocations that issued no interface commands
+        (deployment-kernel fast paths record ``n_commands == 0``) are
+        skipped: they observed nothing to fit against. Returns the fitted
+        scales (also stored on the model, so subsequent :meth:`estimate`
+        calls are calibrated).
+        """
+        pred: Dict[str, float] = {}
+        obs: Dict[str, float] = {}
+        for s in stats:
+            if (
+                getattr(s, "est", None) is None
+                or not self.covers(s.op)
+                or s.n_commands <= 0
+            ):
+                continue
+            pred[s.op] = pred.get(s.op, 0.0) + s.est.raw_commands
+            obs[s.op] = obs.get(s.op, 0.0) + float(s.n_commands)
+        for op, p in pred.items():
+            if p > 0:
+                self.command_scale[op] = obs[op] / p
+        return dict(self.command_scale)
+
+
+@dataclasses.dataclass
+class VT2Case:
+    """A compiler-IR fragment and its accelerator fragment, as IR exprs over
+    shared Vars — both interpreted with ideal (abstract-datatype) semantics
+    for the VT2 equivalence checks (random + exhaustive finite-domain).
+
+    ``tol`` is the rel-Frobenius bound for the random-simulation check.
+    Cases may declare it explicitly; left as None it is stamped with the
+    owning target's :attr:`AcceleratorTarget.vt2_tol` when the case is
+    enumerated — so a backend whose two fragments are the *same* fp32
+    expression declares 0.0 (bit-exact, no silent over-tolerance) while
+    one whose fragments take different-but-equivalent compute paths keeps
+    a small float slack.
+    """
+
+    name: str
+    ir_fragment: ir.Expr
+    accel_fragment: ir.Expr
+    var_shapes: Dict[str, Tuple[int, ...]]
+    tol: Optional[float] = None
+
+
+@dataclasses.dataclass
+class Intrinsic:
+    """One accelerator intrinsic op, as the target declares it.
+
+    planner      (ctx, call, args) -> (List[SimJob], assemble) — the ILA
+                 co-simulation path (None for pass-through markers).
+    kernel       optional deployment fast path (ctx, call, args) -> array.
+    passthrough  data-movement marker (store/load): executes as identity and
+                 is not counted as an invocation.
+    shape/ideal  IR extension hooks: shape(attrs, child_shapes) -> shape and
+                 ideal(attrs, args) -> array. None for ops the IR already
+                 understands (the bundled vocabulary).
+    sample       conformance-case generator: (rng) -> (args, attrs) drawing
+                 random operands *within the declared capability limits*.
+    tol          rel-Frobenius bound for ideal-vs-numerics conformance.
+    options      recommended Executor target-options for conformance runs.
+    """
+
+    op: str
+    planner: Optional[Callable] = None
+    kernel: Optional[Callable] = None
+    passthrough: bool = False
+    shape: Optional[Callable] = None
+    ideal: Optional[Callable] = None
+    sample: Optional[Callable] = None
+    tol: float = 0.05
+    options: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    doc: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class LintDecl:
+    """Static-analysis declarations for one target (``declare_lint``).
+
+    input_range    inclusive (lo, hi) interval of operand values the
+                   target's applications are expected to feed it; drives
+                   the numeric range pass (None = range pass reports
+                   nothing).
+    carried_state  state buffers intentionally carried across fragment
+                   boundaries (recurrent state) — reported at info level
+                   as the ``stale_state`` fault surface instead of warned
+                   about.
+    reset_valid    config registers whose reset value is a legal operating
+                   point (mode-dependent configs a valid stream may never
+                   write) — exempt from uninitialized-read warnings.
+    """
+
+    input_range: Optional[Tuple[float, float]] = None
+    carried_state: Tuple[str, ...] = ()
+    reset_valid: Tuple[str, ...] = ()
+
+
+class AcceleratorTarget:
+    """One pluggable accelerator backend; see the module docstring."""
+
+    def __init__(
+        self,
+        name: str,
+        ila: ILA,
+        display_name: Optional[str] = None,
+        capabilities: Optional[Dict[str, Any]] = None,
+        doc: str = "",
+        vt2_tol: float = 1e-5,
+    ):
+        self.name = name
+        self.ila = ila
+        self.display_name = display_name or name
+        self.capabilities = dict(capabilities or {})
+        self.doc = doc
+        #: rel-Frobenius tolerance for this target's VT2 random-simulation
+        #: checks over abstract (fp32) semantics — part of the numerics
+        #: declaration: 0.0 where both fragment sides evaluate the same
+        #: fp32 expression, a small slack where the compute paths differ
+        self.vt2_tol = float(vt2_tol)
+        self.intrinsics: Dict[str, Intrinsic] = {}
+        #: declared analytic cost model (None until ``add_cost_model``)
+        self.cost_model: Optional[CostModel] = None
+        #: per-target LRU of CompiledFragments (setup streams + cached state)
+        self.fragments = FragmentCache()
+        self._rewrite_fns: List[Callable[[], List[Rewrite]]] = []
+        self._vt2_fns: List[Callable[..., List[VT2Case]]] = []
+        #: name -> fn() -> (ok: bool, worst_abs_dev: float); ILA vs impl (VT3)
+        self.vt3_checks: Dict[str, Callable[[], Tuple[bool, float]]] = {}
+        self._mapping_fns: List[Callable] = []
+        #: static-analysis declarations consumed by ``core.ilalint``
+        self.lint = LintDecl()
+        #: fused fast-path factories (``declare_fused``) + per-fragment
+        #: resolution memo, keyed by (frag.key, device)
+        self._fused_fns: List[Callable[..., Optional[FusedRunner]]] = []
+        self._fused_cache: Dict[Tuple, Optional[FusedRunner]] = {}
+
+    # -- declaration ------------------------------------------------------
+    def declare_lint(self, **kw) -> "LintDecl":
+        """Declare static-analysis facts the lint passes cannot infer from
+        the ILA alone: the operand value range applications feed this
+        target (``input_range``), state buffers intentionally carried
+        across fragments (``carried_state``), and config registers whose
+        reset value is a valid operating point (``reset_valid`` — silences
+        uninitialized-read warnings for mode-dependent configs)."""
+        self.lint = dataclasses.replace(self.lint, **kw)
+        return self.lint
+    def add_intrinsic(self, intr: Intrinsic) -> Intrinsic:
+        self.intrinsics[intr.op] = intr
+        return intr
+
+    def add_cost_model(self, model: CostModel) -> CostModel:
+        """Declare this target's cost model. Extraction falls back to a
+        uniform accelerator-op cost for targets without one, but the
+        conformance suite requires every registered target to price every
+        intrinsic it claims."""
+        self.cost_model = model
+        return model
+
+    def add_rewrites(self, fn: Callable[[], List[Rewrite]]) -> None:
+        """Register a thunk producing this target's IR->intrinsic rewrites
+        (evaluated lazily so rewrite lists stay cheap to rebuild)."""
+        self._rewrite_fns.append(fn)
+
+    def add_vt2_cases(self, fn: Callable[..., List[VT2Case]]) -> None:
+        self._vt2_fns.append(fn)
+
+    def add_vt3_check(self, name: str, fn: Callable[[], Tuple[bool, float]]) -> None:
+        self.vt3_checks[name] = fn
+
+    def add_mapping_cases(self, fn: Callable) -> None:
+        """fn(rng) -> [(operation_label, case_fn)] where case_fn() returns
+        (reference, simulated) for one random input (Table 2)."""
+        self._mapping_fns.append(fn)
+
+    def declare_fused(
+        self, factory: Callable[[CompiledFragment, torch.device], Optional[FusedRunner]]
+    ) -> None:
+        """Register a fused fast-path factory: ``factory(frag, device)`` returns a
+        :class:`~repro_torch.core.ila.FusedRunner` for fragment families it can
+        lower or ``None`` to decline. The Executor's
+        ``engine="fused"`` consults :meth:`fused_runner` per fragment and
+        falls back to the compiled tier for undeclared signatures, so a
+        target never *needs* to declare one — fusion is a pure
+        acceleration, validated against the compiled oracle."""
+        self._fused_fns.append(factory)
+
+    def fused_runner(self, frag: CompiledFragment, device) -> Optional[FusedRunner]:
+        """Resolve (and memoize) the fused runner for one compiled
+        fragment on ``device`` (runners hold their weights there).
+
+        Runners are built from the fragment's *golden* build-time meta, not
+        from the ILA's instruction semantics — a fragment bound to a mutated
+        ILA clone (campaign fault injection) shares the golden key but must
+        not take the fast path, or the fault would be masked."""
+        if frag.ila is not self.ila:
+            return None
+        device = torch.device(device)
+        key = (frag.key, device)
+        if key in self._fused_cache:
+            return self._fused_cache[key]
+        runner = None
+        for fn in self._fused_fns:
+            runner = fn(frag, device)
+            if runner is not None:
+                break
+        self._fused_cache[key] = runner
+        return runner
+
+    # -- what the core layers consume -------------------------------------
+    def rewrites(self) -> List[Rewrite]:
+        out: List[Rewrite] = []
+        for fn in self._rewrite_fns:
+            out.extend(dataclasses.replace(r, target=self.name) for r in fn())
+        return out
+
+    def planner(self, op: str) -> Optional[Callable]:
+        intr = self.intrinsics.get(op)
+        return intr.planner if intr is not None else None
+
+    def vt2_cases(self, dim_t: int = 16, dim_d: int = 64) -> List[VT2Case]:
+        out: List[VT2Case] = []
+        for fn in self._vt2_fns:
+            for case in fn(dim_t, dim_d):
+                if case.tol is None:
+                    case = dataclasses.replace(case, tol=self.vt2_tol)
+                out.append(case)
+        return out
+
+    def cosim_tol(self, ops: Optional[Sequence[str]] = None) -> float:
+        """The declared co-simulation tolerance for a fragment touching
+        ``ops`` (None = all): the loosest per-intrinsic ideal-vs-numerics
+        bound among them. This is what fragment-level *simulation* checks
+        (the fault campaign's VT3-analogue tier) may legitimately deviate by
+        — derived from the numerics each intrinsic declares, so a
+        low-precision backend is neither over- nor under-tolerant."""
+        pool = [
+            intr.tol
+            for op, intr in self.intrinsics.items()
+            if intr.planner is not None and (ops is None or op in ops)
+        ]
+        return max(pool) if pool else 0.05
+
+    def mapping_cases(self, rng) -> List[Tuple[str, Callable]]:
+        out: List[Tuple[str, Callable]] = []
+        for fn in self._mapping_fns:
+            out.extend(fn(rng))
+        return out
+
+    def cache_info(self) -> Dict[str, Any]:
+        """Warm-cache health for the serving path: fragment-cache hit/miss
+        plus the ILA's data-runner counters."""
+        return {
+            "fragments": self.fragments.info(),
+            "fused_runners": sum(
+                1 for v in self._fused_cache.values() if v is not None
+            ),
+            **self.ila.jit_cache_info(),
+        }
+
+
+def register_target(target: AcceleratorTarget) -> AcceleratorTarget:
+    """Register ``target`` with the core: the registry (rewrites, planning,
+    validation enumeration) and the IR extension table (shape inference,
+    ideal oracle, cost model, invocation attribution)."""
+    TARGETS.register(target)
+    for intr in target.intrinsics.values():
+        ir.register_accel_op(
+            intr.op,
+            target.name,
+            shape_fn=intr.shape,
+            eval_fn=intr.ideal,
+            counts=not intr.passthrough,
+        )
+    return target
+
+
+def unregister_target(target: AcceleratorTarget) -> Dict[str, Any]:
+    """Remove ``target`` from the registry and the IR extension table (the
+    inverse of :func:`register_target`; used by tests that register
+    synthetic targets, and by the fault campaign's mutant lifecycle, both
+    of which must leave the process-wide registry bit-identical).
+
+    Returns the removed IR extension specs keyed by op — feed them to
+    :func:`repro_torch.core.ir.restore_accel_op` after re-registering the same
+    target to reinstate the exact original spec objects (a plain
+    ``register_target`` would mint equal-but-new ones, which matters to
+    identity-based leak checks)."""
+    TARGETS.unregister(target.name)
+    return {op: ir.unregister_accel_op(op) for op in target.intrinsics}

@@ -1,0 +1,581 @@
+"""E-graph + equality saturation (egg-style) for flexible matching.
+
+The paper's prototype uses Glenside + egg for equality-saturation-based
+instruction selection ("flexible matching", Section 2.2). We re-implement the
+needed core natively: hash-consed e-nodes, union-find e-classes, congruence
+closure via rebuild, pattern-based rewriting to fixpoint (with node limits),
+and cost-based extraction.
+
+An e-node is ``ENode(head, children)`` where ``head`` identifies the operator
+plus its static attributes, and ``children`` are e-class ids. Leaves (vars /
+constants) have empty children and carry their identity in ``head``.
+
+A *shape analysis* is maintained per e-class (like egg's e-class analyses):
+all members of a class must agree on shape, which shape-conditioned rewrites
+(linear-layer reshape, maxpool decomposition, im2col) rely on.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from . import ir
+
+
+# --------------------------------------------------------------------------
+# E-nodes
+# --------------------------------------------------------------------------
+
+Head = Tuple  # ("op", op_name, attrs) | ("var", name, shape, dtype) | ("const", v)
+
+
+@dataclasses.dataclass(frozen=True)
+class ENode:
+    head: Head
+    children: Tuple[int, ...] = ()
+
+    def map_children(self, f):
+        return ENode(self.head, tuple(f(c) for c in self.children))
+
+
+def op_head(op: str, attrs: Tuple[Tuple[str, Any], ...] = ()) -> Head:
+    return ("op", op, tuple(attrs))
+
+
+# --------------------------------------------------------------------------
+# Patterns
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PatVar:
+    name: str
+
+
+@dataclasses.dataclass(frozen=True)
+class PatNode:
+    op: str
+    args: Tuple[Any, ...] = ()
+    attrs: Tuple[Tuple[str, Any], ...] = ()   # exact attrs to require (subset match)
+    attr_binds: Tuple[str, ...] = ()           # attr names to capture into subst
+
+
+def P(op: str, *args, attrs=(), attr_binds=()) -> PatNode:
+    return PatNode(op, tuple(args), tuple(attrs), tuple(attr_binds))
+
+
+def V(name: str) -> PatVar:
+    return PatVar(name)
+
+
+# --------------------------------------------------------------------------
+# E-graph
+# --------------------------------------------------------------------------
+
+
+class EGraph:
+    def __init__(self):
+        self.parent: List[int] = []
+        self.classes: Dict[int, List[ENode]] = {}
+        self.hashcons: Dict[ENode, int] = {}
+        self.shape: Dict[int, Tuple[int, ...]] = {}
+        self.worklist: List[int] = []
+        self.n_nodes = 0
+        # op-index: head[:2] (("op", name)) -> e-class ids known to contain a
+        # node with that operator. Entries may be stale (merged-away ids);
+        # ``_op_candidates`` resolves through union-find and re-compresses.
+        # Lets ``search`` skip e-matching classes that cannot match a
+        # pattern's root operator instead of scanning every class per rule.
+        self.op_index: Dict[Tuple, set] = {}
+
+    # -- union-find ---------------------------------------------------------
+    def find(self, a: int) -> int:
+        while self.parent[a] != a:
+            self.parent[a] = self.parent[self.parent[a]]
+            a = self.parent[a]
+        return a
+
+    def canon(self, n: ENode) -> ENode:
+        return n.map_children(self.find)
+
+    # -- adding -------------------------------------------------------------
+    def _new_class(self, n: ENode, shape) -> int:
+        cid = len(self.parent)
+        self.parent.append(cid)
+        self.classes[cid] = [n]
+        self.hashcons[n] = cid
+        self.shape[cid] = shape
+        self.n_nodes += 1
+        if n.head[0] == "op":
+            self.op_index.setdefault(n.head[:2], set()).add(cid)
+        return cid
+
+    def _op_candidates(self, op: str) -> set:
+        """Root e-classes that may contain an ``op`` node (superset: stale
+        entries are canonicalized through find and compressed in place)."""
+        ids = self.op_index.get(("op", op))
+        if not ids:
+            return set()
+        roots = {self.find(c) for c in ids}
+        self.op_index[("op", op)] = roots
+        return roots
+
+    def add(self, n: ENode) -> int:
+        n = self.canon(n)
+        if n in self.hashcons:
+            return self.find(self.hashcons[n])
+        return self._new_class(n, self._node_shape(n))
+
+    def _node_shape(self, n: ENode):
+        kind = n.head[0]
+        if kind == "var":
+            return tuple(n.head[2])
+        if kind == "const":
+            return ()
+        op, attrs = n.head[1], dict(n.head[2])
+        child_shapes = [self.shape[self.find(c)] for c in n.children]
+        return _op_shape(op, attrs, child_shapes)
+
+    def add_expr(self, e: ir.Expr) -> int:
+        memo: Dict[int, int] = {}
+
+        def rec(x: ir.Expr) -> int:
+            if id(x) in memo:
+                return memo[id(x)]
+            if isinstance(x, ir.Var):
+                cid = self.add(ENode(("var", x.name, tuple(x.shape), x.dtype)))
+            elif isinstance(x, ir.Const):
+                cid = self.add(ENode(("const", x.value)))
+            else:
+                assert isinstance(x, ir.Call)
+                kids = tuple(rec(a) for a in x.args)
+                cid = self.add(ENode(op_head(x.op, x.attrs), kids))
+            memo[id(x)] = cid
+            return cid
+
+        return rec(e)
+
+    # -- merging ------------------------------------------------------------
+    def merge(self, a: int, b: int) -> int:
+        a, b = self.find(a), self.find(b)
+        if a == b:
+            return a
+        # keep the smaller id as root (stable)
+        if len(self.classes[a]) < len(self.classes[b]):
+            a, b = b, a
+        self.parent[b] = a
+        self.classes[a].extend(self.classes[b])
+        del self.classes[b]
+        sa, sb = self.shape.get(a), self.shape.pop(b, None)
+        if sa is None:
+            self.shape[a] = sb
+        self.worklist.append(a)
+        return a
+
+    def rebuild(self):
+        """Restore congruence closure.
+
+        Full-rehash fixpoint: re-canonicalize every node, merge congruent
+        duplicates, repeat until stable. O(N) per pass; our graphs are small
+        (<= ~40k nodes, <= ~12 saturation iterations) so this sound-and-simple
+        strategy is preferred over egg's incremental parents-worklist repair.
+        """
+        self.worklist.clear()
+        changed = True
+        while changed:
+            changed = False
+            new_hashcons: Dict[ENode, int] = {}
+            pending_merges: List[Tuple[int, int]] = []
+            for cid in list(self.classes.keys()):
+                root = self.find(cid)
+                if root != cid or root not in self.classes:
+                    continue
+                for n in self.classes[root]:
+                    cn = self.canon(n)
+                    other = new_hashcons.get(cn)
+                    if other is None:
+                        new_hashcons[cn] = root
+                    elif self.find(other) != root:
+                        pending_merges.append((other, root))
+            for a, b in pending_merges:
+                if self.find(a) != self.find(b):
+                    self.merge(a, b)
+                    changed = True
+            self.worklist.clear()
+            if not changed:
+                # final: dedupe class node lists & rewrite hashcons
+                self.hashcons = {}
+                for cid in list(self.classes.keys()):
+                    root = self.find(cid)
+                    seen = set()
+                    uniq = []
+                    for n in self.classes[root]:
+                        cn = self.canon(n)
+                        if cn not in seen:
+                            seen.add(cn)
+                            uniq.append(cn)
+                        self.hashcons[cn] = root
+                    self.classes[root] = uniq
+
+    # -- e-matching ----------------------------------------------------------
+    def ematch(self, pat, cid: int, subst: Dict[str, Any]):
+        """Yield extended substitutions matching ``pat`` against e-class cid."""
+        cid = self.find(cid)
+        if isinstance(pat, PatVar):
+            bound = subst.get(pat.name)
+            if bound is None:
+                s2 = dict(subst)
+                s2[pat.name] = cid
+                yield s2
+            elif self.find(bound) == cid:
+                yield subst
+            return
+        assert isinstance(pat, PatNode)
+        for n in list(self.classes.get(cid, ())):
+            if n.head[0] != "op" or n.head[1] != pat.op:
+                continue
+            attrs = dict(n.head[2])
+            if any(attrs.get(k) != v for k, v in pat.attrs):
+                continue
+            if len(n.children) != len(pat.args):
+                continue
+            s0 = dict(subst)
+            ok = True
+            for k in pat.attr_binds:
+                if k in s0 and s0[k] != attrs.get(k):
+                    ok = False
+                    break
+                s0[k] = attrs.get(k)
+            if not ok:
+                continue
+            stack = [s0]
+            for sub_pat, child in zip(pat.args, n.children):
+                nxt = []
+                for s in stack:
+                    nxt.extend(self.ematch(sub_pat, child, s))
+                stack = nxt
+                if not stack:
+                    break
+            yield from stack
+
+    def search(self, pat):
+        """All (eclass, subst) matches of ``pat`` anywhere in the graph.
+
+        Root-operator patterns consult the op-index so only candidate
+        classes are e-matched; iteration stays in ``classes`` order, so
+        match order — hence ``run_rewrites`` behavior — is unchanged.
+        """
+        out = []
+        if isinstance(pat, PatNode):
+            cands = self._op_candidates(pat.op)
+            if not cands:
+                return out
+            for cid in list(self.classes.keys()):
+                if cid not in cands:
+                    continue
+                for s in self.ematch(pat, cid, {}):
+                    out.append((self.find(cid), s))
+            return out
+        for cid in list(self.classes.keys()):
+            for s in self.ematch(pat, cid, {}):
+                out.append((self.find(cid), s))
+        return out
+
+    # -- instantiation --------------------------------------------------------
+    def instantiate(self, template, subst: Dict[str, Any]) -> int:
+        if isinstance(template, PatVar):
+            return self.find(subst[template.name])
+        if isinstance(template, ir.Const):
+            return self.add(ENode(("const", template.value)))
+        assert isinstance(template, PatNode)
+        kids = tuple(self.instantiate(a, subst) for a in template.args)
+        attrs = []
+        for k, v in template.attrs:
+            attrs.append((k, v))
+        for k in template.attr_binds:
+            attrs.append((k, subst[k]))
+        return self.add(ENode(op_head(template.op, tuple(sorted(attrs))), kids))
+
+
+def _op_shape(op, attrs, child_shapes):
+    """Shape semantics mirrored from ir._infer but over raw shapes."""
+    cs = child_shapes
+    if op in ("add", "sub", "mul", "maximum", "vta_add"):
+        return tuple(np.broadcast_shapes(cs[0], cs[1]))
+    if op in ("relu", "sigmoid", "tanh", "negative", "softmax", "vta_relu",
+              "bias_add", "layer_norm", "fasr_layernorm",
+              "fasr_store", "fasr_load", "vta_store", "vta_load"):
+        return cs[0]
+    if op in ("dense", "vta_gemm"):
+        return cs[0][:-1] + (cs[1][0],)
+    if op in ("fasr_linear",):
+        return cs[0][:-1] + (cs[1][0],)
+    if op == "reshape":
+        return tuple(attrs["shape"])
+    if op == "transpose":
+        return tuple(cs[0][a] for a in attrs["axes"])
+    if op in ("conv2d", "hlscnn_conv2d"):
+        n, h, w, c = cs[0]
+        kh, kw, ci, co = cs[1]
+        (sh, sw), (ph, pw) = attrs["strides"], attrs["padding"]
+        return (n, (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1, co)
+    if op == "pad2d":
+        n, h, w, c = cs[0]
+        ph, pw = attrs["pad"]
+        return (n, h + 2 * ph, w + 2 * pw, c)
+    if op == "dw_conv2d":
+        n, h, w, c = cs[0]
+        kh, kw = cs[1][0], cs[1][1]
+        (sh, sw), (ph, pw) = attrs["strides"], attrs["padding"]
+        return (n, (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1, c)
+    if op == "im2col":
+        n, h, w, c = cs[0]
+        kh, kw, sh, sw = attrs["kh"], attrs["kw"], attrs["sh"], attrs["sw"]
+        return (n * ((h - kh) // sh + 1) * ((w - kw) // sw + 1), kh * kw * c)
+    if op == "windows":
+        h, w = cs[0]
+        wh, ww, sh, sw = attrs["wh"], attrs["ww"], attrs["sh"], attrs["sw"]
+        return ((h - wh) // sh + 1, (w - ww) // sw + 1, wh, ww)
+    if op == "flatten_window":
+        oh, ow, wh, ww = cs[0]
+        return (oh * ow, wh * ww)
+    if op in ("reduce_max", "reduce_mean", "reduce_sum"):
+        ax = attrs["axis"]
+        axes = (ax,) if isinstance(ax, int) else tuple(ax)
+        axes = tuple(a % len(cs[0]) for a in axes)
+        return tuple(s for i, s in enumerate(cs[0]) if i not in axes)
+    if op in ("zeros", "ones"):
+        return tuple(attrs["shape"])
+    if op == "concat":
+        ax = attrs["axis"]
+        out = list(cs[0])
+        out[ax] = sum(s[ax] for s in cs)
+        return tuple(out)
+    if op in ("lstm", "fasr_lstm"):
+        return (cs[0][0], cs[0][1], cs[2][1])
+    if op == "lstm_cell":
+        return cs[1]
+    if op in ("attention", "fasr_attention"):
+        return cs[0][:-1] + (cs[2][-1],)
+    if op in ("fasr_maxpool", "fasr_meanpool"):
+        return (cs[0][0] // 2,) + tuple(cs[0][1:])
+    ext = ir.accel_op_shape_fn(op)
+    if ext is not None:
+        return tuple(ext(dict(attrs), list(cs)))
+    return None
+
+
+# -- helpers for rewrite guards/appliers (used by plugin targets too) -------
+
+
+def shape_of(eg: EGraph, cid: int) -> Tuple[int, ...]:
+    """The e-class shape analysis value for ``cid`` (canonicalized)."""
+    return eg.shape[eg.find(cid)]
+
+
+def add_op(eg: EGraph, op: str, children, **attrs) -> int:
+    """Add an op e-node with sorted static attrs; returns its e-class id."""
+    return eg.add(ENode(op_head(op, tuple(sorted(attrs.items()))), tuple(children)))
+
+
+# --------------------------------------------------------------------------
+# Rewrites and the saturation loop
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Rewrite:
+    name: str
+    lhs: Any                              # pattern
+    rhs: Any = None                       # template, or None if applier used
+    applier: Optional[Callable] = None    # fn(egraph, cid, subst) -> new cid | None
+    guard: Optional[Callable] = None      # fn(egraph, cid, subst) -> bool
+    target: str = "ir"                    # owning accelerator target ("ir" = generic)
+
+
+def run_rewrites(
+    eg: EGraph,
+    rules: Sequence[Rewrite],
+    iters: int = 12,
+    node_limit: int = 40_000,
+) -> Dict[str, Any]:
+    """Equality saturation: apply rules to fixpoint / limits. Returns stats.
+
+    ``stats["match_counts"]`` tallies pattern matches per rewrite, keyed by
+    the owning target; ``stats["truncated"]`` / ``stats["dropped_matches"]``
+    flag node-limit truncation explicitly — a truncated run is *not* the same
+    as "no match found", and silent truncation used to look exactly like it.
+    """
+    stats: Dict[str, Any] = {
+        "iterations": 0,
+        "applications": 0,
+        "saturated": False,
+        "truncated": False,
+        "dropped_matches": 0,
+        "match_counts": {},
+    }
+    counts: Dict[str, Dict[str, int]] = stats["match_counts"]
+    for it in range(iters):
+        matches = []
+        for r in rules:
+            found = eg.search(r.lhs)
+            if found:
+                per = counts.setdefault(r.target, {})
+                per[r.name] = per.get(r.name, 0) + len(found)
+            for cid, subst in found:
+                matches.append((r, cid, subst))
+        changed = False
+        for mi, (r, cid, subst) in enumerate(matches):
+            if eg.n_nodes > node_limit:
+                stats["truncated"] = True
+                stats["dropped_matches"] += len(matches) - mi
+                break
+            cid = eg.find(cid)
+            if r.guard is not None and not r.guard(eg, cid, subst):
+                continue
+            if r.applier is not None:
+                new = r.applier(eg, cid, subst)
+            else:
+                new = eg.instantiate(r.rhs, subst)
+            if new is None:
+                continue
+            if eg.find(new) != eg.find(cid):
+                eg.merge(cid, new)
+                changed = True
+                stats["applications"] += 1
+        eg.rebuild()
+        stats["iterations"] = it + 1
+        if not changed:
+            stats["saturated"] = True
+            break
+        if eg.n_nodes > node_limit:
+            stats["truncated"] = True
+            break
+    return stats
+
+
+# --------------------------------------------------------------------------
+# Extraction
+# --------------------------------------------------------------------------
+
+
+def host_op_cost(op: str) -> float:
+    """Extraction cost of one *host* (non-accelerator) op: heavy compute is
+    expensive, glue is cheap — make offloading win wherever a mapping
+    exists (the paper's maximize-#accelerator-ops objective)."""
+    if op in ("dense", "conv2d", "lstm", "attention", "lstm_cell"):
+        return 1000.0               # heavy compute left on host: expensive
+    if op in ("layer_norm", "softmax", "reduce_max", "reduce_mean", "reduce_sum"):
+        return 100.0
+    return 2.0                      # cheap glue
+
+
+def default_cost(head: Head, child_costs: Sequence[float], child_shapes=()) -> float:
+    """Paper's proof-of-concept cost: maximize #accelerator ops == make
+    accelerator ops cheap and plain IR compute expensive. The registry
+    cost model (``core/compile.make_cost_fn``) refines the flat accel-op
+    cost with per-target CostModel cycle estimates; this remains the
+    shape-blind fallback."""
+    base = sum(child_costs)
+    if head[0] != "op":
+        return base + 0.01
+    op = head[1]
+    if op in ir.ACCEL_OPS:
+        return base + 1.0           # accelerator invocation: cheap
+    return base + host_op_cost(op)
+
+
+def _describe_class(eg: EGraph, cid: int, best) -> str:
+    """One diagnostic line for an unresolved e-class: its candidate heads
+    and, per candidate, which child e-classes never got a finite cost."""
+    parts = []
+    for n in eg.classes.get(cid, ()):
+        label = n.head[1] if n.head[0] == "op" else f"{n.head[0]}:{n.head[1]}"
+        missing = sorted({eg.find(c) for c in n.children if eg.find(c) not in best})
+        parts.append(f"{label}{'(blocked by e-classes ' + str(missing) + ')' if missing else '(infinite cost)'}")
+    return f"e-class {cid} [shape={eg.shape.get(cid)}]: " + ", ".join(parts)
+
+
+def extract_best(eg: EGraph, root: int, cost_fn=default_cost) -> Tuple[ir.Expr, float]:
+    """Bottom-up DP extraction of the min-cost expression for ``root``.
+
+    ``cost_fn(head, child_costs, child_shapes) -> float`` may return
+    ``inf`` to veto a candidate (e.g. a forbidden target's intrinsic);
+    non-finite candidates never resolve an e-class. Returns the expression
+    and its total cost. On failure, the error names the unresolved root
+    e-class, its candidate heads, which child e-classes blocked each
+    candidate, and the registered accelerator targets consulted — so a
+    mapping failure is debuggable instead of a bare "no expression".
+    """
+    root = eg.find(root)
+    best: Dict[int, Tuple[float, ENode]] = {}
+    changed = True
+    guard = 0
+    while changed:
+        changed = False
+        guard += 1
+        if guard > 10_000:
+            raise RuntimeError("extract: no fixpoint")
+        for cid, nodes in eg.classes.items():
+            for n in nodes:
+                cc, cs = [], []
+                ok = True
+                for ch in n.children:
+                    ch = eg.find(ch)
+                    if ch not in best:
+                        ok = False
+                        break
+                    cc.append(best[ch][0])
+                    cs.append(eg.shape.get(ch))
+                if not ok:
+                    continue
+                c = cost_fn(n.head, cc, cs)
+                if not np.isfinite(c):
+                    continue
+                if cid not in best or c < best[cid][0]:
+                    best[cid] = (c, n)
+                    changed = True
+    if root not in best:
+        from .ila import TARGETS  # local import: ila never imports egraph
+
+        unresolved = [c for c in eg.classes if c not in best]
+        lines = [_describe_class(eg, root, best)]
+        for cid in unresolved[:8]:
+            if cid != root:
+                lines.append(_describe_class(eg, cid, best))
+        raise RuntimeError(
+            "extract: root has no finite-cost expression.\n"
+            f"  resolved {len(best)}/{len(eg.classes)} e-classes; "
+            f"{len(unresolved)} unresolved.\n"
+            f"  root {lines[0]}\n"
+            + "".join(f"  also unresolved: {l}\n" for l in lines[1:])
+            + f"  registered targets consulted: {TARGETS.names()} "
+            "(an op claimed by no selected target, or forbidden by the "
+            "selection policy, prices to infinity)"
+        )
+
+    memo: Dict[int, ir.Expr] = {}
+
+    def build(cid: int) -> ir.Expr:
+        cid = eg.find(cid)
+        if cid in memo:
+            return memo[cid]
+        _, n = best[cid]
+        if n.head[0] == "var":
+            e = ir.Var(n.head[1], tuple(n.head[2]), n.head[3])
+        elif n.head[0] == "const":
+            e = ir.Const(n.head[1])
+        else:
+            args = tuple(build(c) for c in n.children)
+            e = ir.Call(n.head[1], args, tuple(n.head[2]))
+        memo[cid] = e
+        return e
+
+    return build(root), best[root][0]
+
+
+def extract(eg: EGraph, root: int, cost_fn=default_cost) -> ir.Expr:
+    """Min-cost expression for ``root`` (see :func:`extract_best`)."""
+    return extract_best(eg, root, cost_fn)[0]

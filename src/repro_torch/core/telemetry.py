@@ -1,0 +1,765 @@
+"""Unified telemetry: spans, a metrics registry, and Perfetto trace export.
+
+Every layer of the stack used to carry its own ad-hoc timing — the
+Executor's ``stage_seconds`` dict, the serving layer's ``_rejected``
+counter dict, the campaign's per-mutant ``seconds`` — with no way to
+answer "where did this request's p95 actually go?" *across* layers. This
+module is the one subsystem they all report into:
+
+* **Spans** — nestable, ``trace_id``-correlated timed regions with a
+  context-manager/decorator API (:meth:`Telemetry.span`, :func:`traced`)
+  plus an explicit-timestamps form (:meth:`Telemetry.record_span`) for
+  regions measured across threads (a request's queue wait starts on the
+  submitting thread and ends on the dispatch thread). Spans land in a
+  bounded ring buffer — saturation *drops the oldest and counts the drop*
+  (:attr:`Telemetry.spans_dropped`); there is no silent truncation — and
+  export as Chrome ``trace_event`` JSON (:meth:`Telemetry.export_trace`)
+  loadable in Perfetto / ``chrome://tracing``, so one served request
+  renders as a single correlated flame: queue wait -> admission ->
+  coalesce -> prepack -> dispatch -> sim tail -> readback ->
+  de-interleave.
+
+* **Metrics registry** (:class:`MetricsRegistry`) — named counters,
+  gauges, and **streaming-percentile histograms** (p50/p95/p99 via the
+  P-square algorithm: five markers per quantile, O(1) per observation, no
+  stored samples), snapshot-able to JSON (:meth:`Telemetry.export_metrics`)
+  and dumpable as Prometheus-style text (:meth:`Telemetry.prometheus_text`).
+  Components own *scoped* registries (one per Executor / CosimServer)
+  attached to the process-wide :data:`TELEMETRY` singleton by weakref, so
+  a global snapshot sees every live component without components sharing
+  mutable state.
+
+* **Tracing is disabled by default** and the disabled fast path is one
+  attribute check: ``TELEMETRY.enabled``. Hot paths guard on it before
+  building any span arguments, and :meth:`Telemetry.span` returns a
+  shared no-op context manager when disabled — the disabled mode
+  allocates nothing (pinned by the zero-allocation smoke test and the
+  ``serving_telemetry_overhead`` bench row). Metrics counters are *not*
+  gated: they replace pre-existing always-on accounting (stage timers,
+  reject counts) at the same cost.
+
+Metric naming convention (checked by :func:`check_metric_names` and the
+CI schema step; see ``docs/observability.md``):
+
+    <layer>.<name>[.<name>]   — lowercase ``[a-z0-9_]`` segments joined
+                                 by dots; the first segment is the owning
+                                 layer (``serving``, ``pipeline``,
+                                 ``executor``, ``fragments``,
+                                 ``campaign``, ``telemetry``); unit
+                                 suffixes ``_s``/``_ms``/``_us``/
+                                 ``_cycles``/``_ratio`` where applicable.
+
+Span names follow the same convention; a span's ``cat`` (trace category)
+is its first segment, so Perfetto can filter one layer's lane.
+"""
+from __future__ import annotations
+
+import functools
+import json
+import os
+import re
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+
+#: the documented metric/span naming convention (docs/observability.md)
+NAME_LAYERS = ("serving", "pipeline", "executor", "fragments", "campaign",
+               "telemetry")
+NAME_RE = re.compile(
+    r"^(" + "|".join(NAME_LAYERS) + r")\.[a-z][a-z0-9_]*(\.[a-z][a-z0-9_]*)*$"
+)
+
+#: perf_counter origin for trace timestamps (microseconds since import)
+_EPOCH = time.perf_counter()
+
+
+def _now_us() -> float:
+    return (time.perf_counter() - _EPOCH) * 1e6
+
+
+def check_metric_names(names: Iterable[str]) -> List[str]:
+    """Return the names violating the documented convention (empty = ok)."""
+    return [n for n in names if not NAME_RE.match(n)]
+
+
+# ---------------------------------------------------------------------------
+# Streaming percentiles: the P-square algorithm (Jain & Chlamtac 1985)
+# ---------------------------------------------------------------------------
+
+
+class _P2:
+    """One quantile estimated online with five markers — O(1) memory and
+    O(1) per observation, no stored samples. Below five observations the
+    estimate is the exact order statistic of what has been seen."""
+
+    __slots__ = ("q", "n", "heights", "pos", "want", "dwant")
+
+    def __init__(self, q: float):
+        self.q = float(q)
+        self.n = 0
+        self.heights: List[float] = []
+        self.pos = [1.0, 2.0, 3.0, 4.0, 5.0]
+        self.want = [1.0, 1.0 + 2.0 * q, 1.0 + 4.0 * q, 3.0 + 2.0 * q, 5.0]
+        self.dwant = [0.0, q / 2.0, q, (1.0 + q) / 2.0, 1.0]
+
+    def add(self, x: float) -> None:
+        self.n += 1
+        h = self.heights
+        if self.n <= 5:
+            h.append(x)
+            h.sort()
+            return
+        # locate the cell and clamp the extremes
+        if x < h[0]:
+            h[0] = x
+            k = 0
+        elif x >= h[4]:
+            h[4] = x
+            k = 3
+        else:
+            k = 0
+            while k < 3 and not (h[k] <= x < h[k + 1]):
+                k += 1
+        pos, want = self.pos, self.want
+        for i in range(k + 1, 5):
+            pos[i] += 1.0
+        for i in range(5):
+            want[i] += self.dwant[i]
+        for i in (1, 2, 3):
+            d = want[i] - pos[i]
+            if (d >= 1.0 and pos[i + 1] - pos[i] > 1.0) or (
+                d <= -1.0 and pos[i - 1] - pos[i] < -1.0
+            ):
+                d = 1.0 if d > 0 else -1.0
+                # parabolic prediction, linear fallback when non-monotone
+                hp = h[i] + d / (pos[i + 1] - pos[i - 1]) * (
+                    (pos[i] - pos[i - 1] + d)
+                    * (h[i + 1] - h[i]) / (pos[i + 1] - pos[i])
+                    + (pos[i + 1] - pos[i] - d)
+                    * (h[i] - h[i - 1]) / (pos[i] - pos[i - 1])
+                )
+                if not (h[i - 1] < hp < h[i + 1]):
+                    j = i + (1 if d > 0 else -1)
+                    hp = h[i] + d * (h[j] - h[i]) / (pos[j] - pos[i])
+                h[i] = hp
+                pos[i] += d
+
+    def value(self) -> float:
+        if self.n == 0:
+            return float("nan")
+        h = self.heights
+        if self.n <= 5:
+            # exact small-sample quantile (linear interpolation, like numpy)
+            idx = self.q * (len(h) - 1)
+            lo = int(idx)
+            hi = min(lo + 1, len(h) - 1)
+            return h[lo] + (h[hi] - h[lo]) * (idx - lo)
+        return h[2]
+
+
+# ---------------------------------------------------------------------------
+# Metrics
+# ---------------------------------------------------------------------------
+
+
+class Counter:
+    """Monotonic accumulator (float increments allowed: stage seconds)."""
+
+    __slots__ = ("name", "labels", "_v", "_lock")
+
+    def __init__(self, name: str, labels: Dict[str, str]):
+        self.name = name
+        self.labels = labels
+        self._v = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, v: float = 1.0) -> None:
+        with self._lock:
+            self._v += v
+
+    @property
+    def value(self) -> float:
+        return self._v
+
+    def reset(self) -> None:
+        with self._lock:
+            self._v = 0.0
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"type": "counter", "value": self._v}
+
+
+class Gauge:
+    """Last-write-wins level (queue depth, backlog cycles); ``set_max``
+    keeps a running maximum (worst relative error)."""
+
+    __slots__ = ("name", "labels", "_v", "_lock")
+
+    def __init__(self, name: str, labels: Dict[str, str]):
+        self.name = name
+        self.labels = labels
+        self._v = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, v: float) -> None:
+        self._v = float(v)
+
+    def inc(self, v: float = 1.0) -> None:
+        with self._lock:
+            self._v += v
+
+    def set_max(self, v: float) -> None:
+        with self._lock:
+            if v > self._v:
+                self._v = float(v)
+
+    @property
+    def value(self) -> float:
+        return self._v
+
+    def reset(self) -> None:
+        self._v = 0.0
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"type": "gauge", "value": self._v}
+
+
+class Histogram:
+    """Streaming distribution: count/sum/min/max plus P-square estimates of
+    p50/p95/p99 — percentiles without storing samples."""
+
+    __slots__ = ("name", "labels", "count", "sum", "min", "max", "_p2s",
+                 "_lock")
+
+    QUANTILES = (0.5, 0.95, 0.99)
+
+    def __init__(self, name: str, labels: Dict[str, str]):
+        self.name = name
+        self.labels = labels
+        self._lock = threading.Lock()
+        self._init()
+
+    def _init(self) -> None:
+        self.count = 0
+        self.sum = 0.0
+        self.min = float("inf")
+        self.max = float("-inf")
+        self._p2s = [_P2(q) for q in self.QUANTILES]
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        with self._lock:
+            self.count += 1
+            self.sum += v
+            if v < self.min:
+                self.min = v
+            if v > self.max:
+                self.max = v
+            for p2 in self._p2s:
+                p2.add(v)
+
+    def percentile(self, q: float) -> float:
+        """The streaming estimate for one of the tracked quantiles."""
+        for p2 in self._p2s:
+            if p2.q == q:
+                return p2.value()
+        raise KeyError(f"histogram tracks {self.QUANTILES}, not {q}")
+
+    def reset(self) -> None:
+        with self._lock:
+            self._init()
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            if self.count == 0:
+                return {"type": "histogram", "count": 0, "sum": 0.0}
+            return {
+                "type": "histogram",
+                "count": self.count,
+                "sum": self.sum,
+                "mean": self.sum / self.count,
+                "min": self.min,
+                "max": self.max,
+                "p50": self._p2s[0].value(),
+                "p95": self._p2s[1].value(),
+                "p99": self._p2s[2].value(),
+            }
+
+
+class MetricsRegistry:
+    """Named metrics for one component, get-or-create by (name, labels).
+
+    Components (an Executor, a CosimServer) own a registry scoped by a
+    unique name and attach it to the process singleton
+    (:meth:`Telemetry.attach`) so global snapshots see every live
+    component; the component keeps direct references to its hot metrics,
+    so reads/increments never pay a registry lookup.
+    """
+
+    _seq = 0
+    _seq_lock = threading.Lock()
+
+    def __init__(self, scope: str = ""):
+        if scope:
+            with MetricsRegistry._seq_lock:
+                MetricsRegistry._seq += 1
+                scope = f"{scope}{MetricsRegistry._seq}"
+        self.scope = scope
+        self._metrics: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], Any] = {}
+        self._lock = threading.Lock()
+
+    def _get(self, cls, name: str, labels: Dict[str, str]):
+        key = (name, tuple(sorted(labels.items())))
+        with self._lock:
+            m = self._metrics.get(key)
+            if m is None:
+                m = cls(name, dict(labels))
+                self._metrics[key] = m
+            elif not isinstance(m, cls):
+                raise TypeError(
+                    f"metric {name!r}{labels} already registered as "
+                    f"{type(m).__name__}, not {cls.__name__}"
+                )
+            return m
+
+    def counter(self, name: str, **labels: str) -> Counter:
+        return self._get(Counter, name, labels)
+
+    def gauge(self, name: str, **labels: str) -> Gauge:
+        return self._get(Gauge, name, labels)
+
+    def histogram(self, name: str, **labels: str) -> Histogram:
+        return self._get(Histogram, name, labels)
+
+    def find(self, name: str) -> List[Any]:
+        """Every metric registered under ``name`` (any label set)."""
+        with self._lock:
+            return [m for (n, _), m in self._metrics.items() if n == name]
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted({n for (n, _) in self._metrics})
+
+    def reset(self) -> None:
+        with self._lock:
+            metrics = list(self._metrics.values())
+        for m in metrics:
+            m.reset()
+
+    def snapshot(self) -> List[Dict[str, Any]]:
+        """One entry per metric: name, scope, labels, type + values."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        return [
+            dict(name=m.name, scope=self.scope, labels=dict(m.labels),
+                 **m.snapshot())
+            for m in metrics
+        ]
+
+
+# ---------------------------------------------------------------------------
+# Spans
+# ---------------------------------------------------------------------------
+
+
+class _NoopSpan:
+    """The disabled-mode span: a single shared instance, no state, no
+    allocation. ``set`` swallows late-bound args."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **args) -> None:
+        pass
+
+
+_NOOP_SPAN = _NoopSpan()
+
+
+class _Span:
+    """An enabled span: records wall-clock at enter/exit, inherits the
+    thread's current trace id and span stack (nesting), and lands in the
+    owning :class:`Telemetry` ring buffer on exit."""
+
+    __slots__ = ("_tel", "name", "trace_id", "args", "_t0")
+
+    def __init__(self, tel: "Telemetry", name: str,
+                 trace_id: Optional[Any], args: Dict[str, Any]):
+        self._tel = tel
+        self.name = name
+        self.trace_id = trace_id
+        self.args = args
+        self._t0 = 0.0
+
+    def set(self, **args: Any) -> None:
+        """Attach args discovered after the span opened (e.g. outcome)."""
+        self.args.update(args)
+
+    def __enter__(self) -> "_Span":
+        tel = self._tel
+        tls = tel._tls
+        if self.trace_id is None:
+            self.trace_id = getattr(tls, "trace", None)
+        stack = getattr(tls, "stack", None)
+        if stack is None:
+            stack = tls.stack = []
+        if stack:
+            self.args.setdefault("parent", stack[-1].name)
+        stack.append(self)
+        self._t0 = _now_us()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = _now_us()
+        tls = self._tel._tls
+        stack = getattr(tls, "stack", None)
+        if stack and stack[-1] is self:
+            stack.pop()
+        self._tel._emit(self.name, self._t0, t1 - self._t0,
+                        self.trace_id, self.args)
+        return False
+
+
+class _TraceCtx:
+    """Context manager binding the thread-local current trace id (spans
+    opened inside inherit it unless they pass their own)."""
+
+    __slots__ = ("_tel", "_trace", "_prev")
+
+    def __init__(self, tel: "Telemetry", trace_id: Any):
+        self._tel = tel
+        self._trace = trace_id
+        self._prev = None
+
+    def __enter__(self):
+        tls = self._tel._tls
+        self._prev = getattr(tls, "trace", None)
+        tls.trace = self._trace
+        return self
+
+    def __exit__(self, *exc):
+        self._tel._tls.trace = self._prev
+        return False
+
+
+class Telemetry:
+    """The process-wide telemetry hub: enable/disable, the span ring
+    buffer, trace export, and the global + attached metrics registries.
+    Thread-safe throughout; see the module docstring."""
+
+    DEFAULT_CAPACITY = 16384
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY):
+        self.enabled = False
+        self._capacity = int(capacity)
+        self._ring: "deque[Dict[str, Any]]" = deque()
+        self._lock = threading.Lock()
+        self.spans_recorded = 0
+        self.spans_dropped = 0
+        self._tls = threading.local()
+        #: tid map: real thread idents and synthetic track names -> small
+        #: stable ints, with display names for trace metadata
+        self._tids: Dict[Any, int] = {}
+        self._tid_names: Dict[int, str] = {}
+        self.metrics = MetricsRegistry()
+        self._attached: List[Any] = []  # weakrefs to component registries
+
+    # -- lifecycle -------------------------------------------------------
+    def enable(self, capacity: Optional[int] = None) -> None:
+        if capacity is not None:
+            self._capacity = int(capacity)
+        self.enabled = True
+
+    def disable(self) -> None:
+        self.enabled = False
+
+    def reset(self) -> None:
+        """Clear spans + drop counters + the global registry (attached
+        component registries are owned by their components)."""
+        with self._lock:
+            self._ring.clear()
+            self.spans_recorded = 0
+            self.spans_dropped = 0
+        self.metrics.reset()
+
+    # -- registries ------------------------------------------------------
+    def attach(self, registry: MetricsRegistry) -> MetricsRegistry:
+        """Register a component registry (held by weakref) so global
+        snapshots include it for as long as the component lives."""
+        import weakref
+
+        with self._lock:
+            self._attached.append(weakref.ref(registry))
+        return registry
+
+    def registries(self) -> List[MetricsRegistry]:
+        out = [self.metrics]
+        with self._lock:
+            live = []
+            for ref in self._attached:
+                reg = ref()
+                if reg is not None:
+                    live.append(ref)
+                    out.append(reg)
+            self._attached = live
+        return out
+
+    def counter(self, name: str, **labels: str) -> Counter:
+        return self.metrics.counter(name, **labels)
+
+    def gauge(self, name: str, **labels: str) -> Gauge:
+        return self.metrics.gauge(name, **labels)
+
+    def histogram(self, name: str, **labels: str) -> Histogram:
+        return self.metrics.histogram(name, **labels)
+
+    # -- spans -----------------------------------------------------------
+    def span(self, name: str, trace_id: Optional[Any] = None,
+             **args: Any):
+        """Open a timed region (use as a context manager). Disabled mode
+        returns the shared no-op span — zero allocation when called with
+        only the name."""
+        if not self.enabled:
+            return _NOOP_SPAN
+        return _Span(self, name, trace_id, args)
+
+    def trace(self, trace_id: Any) -> _TraceCtx:
+        """Bind the thread's current trace id for the enclosed region."""
+        return _TraceCtx(self, trace_id)
+
+    def current_trace(self) -> Optional[Any]:
+        return getattr(self._tls, "trace", None)
+
+    def record_span(self, name: str, t0_s: float, t1_s: float,
+                    trace_id: Optional[Any] = None,
+                    track: Optional[str] = None, **args: Any) -> None:
+        """Record a span from explicit ``time.perf_counter()`` endpoints —
+        for regions measured across threads (queue wait) or discovered
+        after the fact. ``track`` names a synthetic timeline (e.g. one
+        lane per in-flight request) instead of the calling thread. A
+        ``trace_id`` of None inherits the thread's bound trace."""
+        if not self.enabled:
+            return
+        if trace_id is None:
+            trace_id = getattr(self._tls, "trace", None)
+        t0 = (t0_s - _EPOCH) * 1e6
+        self._emit(name, t0, max(0.0, (t1_s - t0_s)) * 1e6, trace_id, args,
+                   track=track)
+
+    def _tid_for(self, key: Any, display: str) -> int:
+        tid = self._tids.get(key)
+        if tid is None:
+            tid = len(self._tids) + 1
+            self._tids[key] = tid
+            self._tid_names[tid] = display
+        return tid
+
+    def _emit(self, name: str, ts_us: float, dur_us: float,
+              trace_id: Optional[Any], args: Dict[str, Any],
+              track: Optional[str] = None) -> None:
+        if track is not None:
+            tkey, display = ("track", track), track
+        else:
+            t = threading.current_thread()
+            tkey, display = t.ident, t.name
+        ev = {
+            "name": name,
+            "ts": ts_us,
+            "dur": dur_us,
+            "tid_key": (tkey, display),
+        }
+        if trace_id is not None:
+            ev["trace_id"] = trace_id
+        if args:
+            ev["args"] = args
+        with self._lock:
+            if len(self._ring) >= self._capacity:
+                self._ring.popleft()
+                self.spans_dropped += 1
+            self._ring.append(ev)
+            self.spans_recorded += 1
+
+    def spans(self) -> List[Dict[str, Any]]:
+        """A snapshot of the ring buffer (oldest first)."""
+        with self._lock:
+            return list(self._ring)
+
+    def drain_spans(self) -> List[Dict[str, Any]]:
+        """Return and clear the buffered spans (the sharded campaign's
+        worker-side export: each mutant's spans ship with its result)."""
+        with self._lock:
+            out = list(self._ring)
+            self._ring.clear()
+        return out
+
+    def ingest(self, spans: Sequence[Dict[str, Any]],
+               source: str = "remote") -> None:
+        """Merge spans exported by another process (``drain_spans`` on a
+        sharded worker) into this buffer, re-keyed onto per-source
+        timelines so worker lanes stay distinct in the exported trace."""
+        for ev in spans:
+            ev = dict(ev)
+            key = ev.get("tid_key")
+            display = key[1] if isinstance(key, (tuple, list)) else "thread"
+            ev["tid_key"] = (("ingest", source, tuple(key) if key else None),
+                             f"{source}:{display}")
+            with self._lock:
+                if len(self._ring) >= self._capacity:
+                    self._ring.popleft()
+                    self.spans_dropped += 1
+                self._ring.append(ev)
+                self.spans_recorded += 1
+
+    # -- export ----------------------------------------------------------
+    def trace_events(self) -> List[Dict[str, Any]]:
+        """Chrome ``trace_event`` list: one complete ("X") event per span
+        plus process/thread metadata. ``trace_id`` rides in ``args`` so
+        Perfetto's search correlates one request/mutant across threads."""
+        pid = os.getpid()
+        events: List[Dict[str, Any]] = [{
+            "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": "repro"},
+        }]
+        spans = self.spans()
+        seen_tids: Dict[int, str] = {}
+        for ev in spans:
+            key, display = ev["tid_key"]
+            tid = self._tid_for(key if not isinstance(key, list) else tuple(key),
+                                display)
+            seen_tids[tid] = display
+            args = dict(ev.get("args", {}))
+            if "trace_id" in ev:
+                args["trace_id"] = ev["trace_id"]
+            out = {
+                "name": ev["name"],
+                "cat": ev["name"].split(".", 1)[0],
+                "ph": "X",
+                "ts": ev["ts"],
+                "dur": ev["dur"],
+                "pid": pid,
+                "tid": tid,
+            }
+            if args:
+                out["args"] = args
+            events.append(out)
+        for tid, display in sorted(seen_tids.items()):
+            events.append({
+                "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                "args": {"name": display},
+            })
+        return events
+
+    def export_trace(self, path: str) -> str:
+        """Write the Perfetto/chrome://tracing-loadable JSON trace."""
+        data = {
+            "traceEvents": self.trace_events(),
+            "displayTimeUnit": "ms",
+            "otherData": {
+                "spans_recorded": self.spans_recorded,
+                "spans_dropped": self.spans_dropped,
+                "capacity": self._capacity,
+            },
+        }
+        with open(path, "w") as f:
+            json.dump(data, f)
+            f.write("\n")
+        return path
+
+    def metrics_snapshot(self) -> List[Dict[str, Any]]:
+        """Every metric of every live registry, plus the telemetry
+        subsystem's own span accounting."""
+        entries: List[Dict[str, Any]] = []
+        for reg in self.registries():
+            entries.extend(reg.snapshot())
+        entries.append({
+            "name": "telemetry.spans_recorded", "scope": "", "labels": {},
+            "type": "counter", "value": float(self.spans_recorded),
+        })
+        entries.append({
+            "name": "telemetry.spans_dropped", "scope": "", "labels": {},
+            "type": "counter", "value": float(self.spans_dropped),
+        })
+        return entries
+
+    def export_metrics(self, path: str) -> str:
+        data = {
+            "schema": 1,
+            "generated_unix": time.time(),
+            "metrics": self.metrics_snapshot(),
+        }
+        with open(path, "w") as f:
+            json.dump(data, f, indent=1, sort_keys=True)
+            f.write("\n")
+        return path
+
+    def prometheus_text(self) -> str:
+        """Prometheus exposition-style dump (``.`` -> ``_`` in names, the
+        scope as a label; histograms expose count/sum/quantile series)."""
+        lines: List[str] = []
+        for e in self.metrics_snapshot():
+            base = e["name"].replace(".", "_")
+            labels = dict(e["labels"])
+            if e.get("scope"):
+                labels["scope"] = e["scope"]
+
+            def fmt(extra: Dict[str, str] = {}) -> str:
+                lab = {**labels, **extra}
+                if not lab:
+                    return ""
+                inner = ",".join(
+                    f'{k}="{v}"' for k, v in sorted(lab.items()))
+                return "{" + inner + "}"
+
+            if e["type"] == "histogram":
+                lines.append(f"{base}_count{fmt()} {e.get('count', 0)}")
+                lines.append(f"{base}_sum{fmt()} {e.get('sum', 0.0)}")
+                for q in ("p50", "p95", "p99"):
+                    if q in e:
+                        lines.append(
+                            f"{base}{fmt({'quantile': '0.' + q[1:]})} {e[q]}")
+            else:
+                lines.append(f"{base}{fmt()} {e['value']}")
+        return "\n".join(lines) + "\n"
+
+    def check_names(self) -> List[str]:
+        """Metric names violating the documented convention, across every
+        live registry (the CI schema check)."""
+        names = set()
+        for reg in self.registries():
+            names.update(reg.names())
+        return check_metric_names(sorted(names))
+
+
+#: the process-wide singleton every layer reports into
+TELEMETRY = Telemetry()
+
+
+def traced(name: str, **args: Any) -> Callable:
+    """Decorator form of :meth:`Telemetry.span`: times every call of the
+    wrapped function (no-op while telemetry is disabled)."""
+
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            if not TELEMETRY.enabled:
+                return fn(*a, **kw)
+            with TELEMETRY.span(name, **args):
+                return fn(*a, **kw)
+
+        return wrapper
+
+    return deco
+
+
+# convenience module-level aliases (hot paths use TELEMETRY directly)
+span = TELEMETRY.span
+trace = TELEMETRY.trace
+record_span = TELEMETRY.record_span
+enable = TELEMETRY.enable
+disable = TELEMETRY.disable

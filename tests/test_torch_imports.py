@@ -1,0 +1,112 @@
+"""PyTorch port: import isolation and device resolution.
+
+The port (``src/repro_torch``) and ``chip_smoke.py`` import neither JAX nor
+the JAX package; every slice module imports with ``jax`` blocked. Entry
+points default to CUDA and raise on a host without it — no silent CPU
+fallback.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+SLICE_MODULES = [
+    "repro_torch.device",
+    "repro_torch.core.telemetry",
+    "repro_torch.core.ir",
+    "repro_torch.core.egraph",
+    "repro_torch.core.ila",
+    "repro_torch.core.rules",
+    "repro_torch.core.compile",
+    "repro_torch.core.codegen",
+    "repro_torch.core.apps",
+    "repro_torch.core.cosim",
+    "repro_torch.accel.numerics",
+    "repro_torch.accel.target",
+    "repro_torch.accel.flexasr",
+    "repro_torch.kernels.ref",
+    "repro_torch.kernels.build",
+    "repro_torch.kernels.af_gemm",
+    "repro_torch.kernels.ops",
+]
+
+_FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax\b|jaxlib\b|repro(?:\.|\s|$))")
+
+
+def test_slice_modules_import_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    __import__(m)\n"
+        "leaked = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
+        "assert not leaked, leaked\n"
+        "from repro_torch.core.ila import TARGETS\n"
+        "assert TARGETS.names() == ['flexasr'], TARGETS.names()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_jax_or_reference_imports_in_sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [
+        f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
+        for f in files
+        for i, line in enumerate(f.read_text().splitlines(), 1)
+        if _FORBIDDEN.match(line)
+    ]
+    assert not offenders, offenders
+
+
+def test_executor_without_device_raises_when_cuda_absent(monkeypatch):
+    from repro_torch.core.codegen import Executor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Executor()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Executor("ila", device="cuda")
+    assert Executor("ila", device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", ["interpret", "init_state", "setup_state", "teacher"])
+def test_entry_points_default_to_cuda(entry, monkeypatch):
+    from repro_torch.accel import flexasr as fa
+    from repro_torch.core import apps, cosim, ir
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = ir.Var("x", (2, 3))
+    calls = {
+        "interpret": lambda: ir.interpret(ir.call("relu", x), {"x": np.ones((2, 3))}),
+        "init_state": lambda: fa.flexasr.init_state(),
+        "setup_state": lambda: fa.pool_fragment(8, "max", cache=False).setup_state(),
+        "teacher": lambda: cosim.make_teacher_task(apps.build_resmlp, (16, 64), n=4),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
+def test_resolving_cuda_turns_tf32_off(monkeypatch):
+    from repro_torch import device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert not device.tf32_off()
+    assert device.resolve(None) == torch.device("cuda", 0)
+    assert device.tf32_off()
+    assert device.resolve("cpu") == torch.device("cpu")
