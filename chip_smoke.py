@@ -5,26 +5,45 @@
 Run from the repository root on a host with one CUDA card (it exits non-zero
 without one). Phases, one line each:
 
-1. device   the card's name and power limit (nvidia-smi); TF32 is off
-2. build    compile every CUDA kernel of the path from src/repro_torch/csrc
-3. kernels  each kernel against its plain PyTorch version on the card, at the
-            shapes the main path gives it (``torch.equal``), and the FlexASR
-            VT3 check (ILA simulator vs af_gemm, worst deviation 0.0)
-4. resmlp   the paper's Table-4 ResMLP row on FlexASR at the repository's
-            configuration: teacher task, 600 training steps, flexible
-            matching, then 40 points through the ideal, ILA (compiled),
-            kernel and fused executors; kernel launches counted over that
-            run; the three accelerator columns agree with the ideal logits
-            within fasr_linear's tolerance and are bit-identical to each
-            other on every point
-5. timing   kernel, plain version and bound at the main path's shapes (CUDA
-            events around CUDA-graph replays, after a warm-up)
-6. profile  the device's busy share over 16 fused-engine points
-            (torch.profiler; a diagnostic that fails nothing)
+1. device    the card's name and power limit (nvidia-smi); TF32 is off
+2. build     compile every CUDA kernel of the path from src/repro_torch/csrc
+             (one nvcc per source, all started together)
+3. kernels   each kernel against its plain PyTorch version on the card, at the
+             shapes the main path gives it (``torch.equal``), and the FlexASR
+             and VTA VT3 checks (ILA simulator vs kernel, worst deviation 0.0)
+4. resmlp    the paper's Table-4 ResMLP row on FlexASR at the repository's
+             configuration: teacher task, 600 training steps, flexible
+             matching, then 40 points through the ideal, ILA (compiled),
+             kernel and fused executors; af_gemm launches counted over that
+             run; the three accelerator columns agree with the ideal logits
+             within fasr_linear's tolerance and are bit-identical to each
+             other on every point
+5. resnet20, mobilenet_v2
+             the two conv rows of Table 4 on FlexASR + HLSCNN through
+             ``repro_torch.launch.table4`` (600 steps, 40 points), columns
+             ideal, ila-8 (original), ila-16 (updated), fused-8 and fused-16;
+             7 hlscnn + 1 flexasr offloads; each fused column launches
+             fx_gemm once per conv per fused group and is bit-identical to
+             the ila column of the same weight width; the original-vs-updated
+             gap (the paper's finding) is reported, not gated
+6. efficientnet
+             on FlexASR + HLSCNN + VecUnit (6 vecunit, 4 hlscnn, 2 flexasr
+             offloads), columns ideal, ila-16 and fused-16; fused is
+             bit-identical to ila
+7. vta       the ResMLP program (the parameters trained in phase 4) compiled
+             onto VTA (7 vta_gemm, 4 vta_add, 2 vta_relu), columns ideal,
+             ila and kernel; int8_gemm launches 7 times per point in the
+             kernel column, which is bit-identical to ila
+8. timing    kernel, plain version, bound and (where one exists) the PyTorch
+             library call at the main path's shapes (CUDA events around
+             CUDA-graph replays, after a warm-up)
+9. profile   the device's busy share over one fused-engine minibatch of the
+             ResMLP row and of the ResNet-20 row (torch.profiler)
 
-Then one JSON line per kernel (``{"kernels": [...]}``) and, last, the result
-line ``{"ok": true, "device": {...}}``. Details go to
-``chiprun_out/chip_smoke.json``.
+Every count of kernel launches is set to 0 just before a path runs and read
+just after it. Then one JSON line per kernel (``{"kernels": [...]}``), the
+card's nvidia-smi line and, last, the result line ``{"ok": true, "device":
+{...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -38,10 +57,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: published H100 SXM peaks (NVIDIA data sheet): dense bf16 on the tensor
-#: cores, and HBM3 bandwidth. An AF(8,3) value has 5 significant bits, so
-#: af_gemm's quantized operands and their products are exact in bf16 and
-#: the bf16 rate is the fastest rate at which the same products can run.
+#: cores, float32 outside them, int8 on the tensor cores, and HBM3
+#: bandwidth. An AF(8,3) value has 5 significant bits, so af_gemm's
+#: quantized operands and their products are exact in bf16 and the bf16
+#: rate is the fastest rate at which the same products can run; fx_gemm
+#: takes float32 operands, int8_gemm int8 ones.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 N_EVAL = 40
@@ -64,15 +87,31 @@ def main() -> int:
         return 2
 
     from repro_torch import device as devmod
-    from repro_torch.accel import flexasr as fa
-    from repro_torch.core import apps, cosim
+    from repro_torch.accel import flexasr as fa, numerics, vta
+    from repro_torch.core import apps, cosim, ir
     from repro_torch.core.codegen import Executor
     from repro_torch.core.compile import compile_program
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.af_gemm import af_gemm
+    from repro_torch.kernels.fx_gemm import fx_gemm
+    from repro_torch.kernels.int8_gemm import int8_gemm
+    from repro_torch.launch import table4
 
     report = {}
     dev = devmod.resolve("cuda")
+    wrappers = {"af_gemm": af_gemm, "fx_gemm": fx_gemm, "int8_gemm": int8_gemm}
+    #: per kernel, launches summed over every main-path run (read per path)
+    path_launches = {name: 0 for name in wrappers}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        counts = {name: w.launches for name, w in wrappers.items()}
+        for name, n in counts.items():
+            path_launches[name] += n
+        return counts
 
     # 1. device -------------------------------------------------------------
     smi = subprocess.run(
@@ -87,17 +126,19 @@ def main() -> int:
 
     # 2. build ---------------------------------------------------------------
     secs = build.build()
-    regs = [ln.strip() for ln in build.PTXAS_REPORT.get("af_gemm", "").splitlines()
-            if "registers" in ln]
+    regs = {name: [ln.strip() for ln in text.splitlines() if "registers" in ln]
+            for name, text in build.PTXAS_REPORT.items()}
     phase("build", **{k: f"{v:.1f}s" for k, v in secs.items()},
-          ptxas=(regs[0].replace(" ", "_") if regs else "cached"))
+          ptxas=";".join(f"{k}:{v[0].replace(' ', '_')}" for k, v in regs.items() if v)
+          or "cached")
     report["build_s"] = secs
     report["ptxas"] = build.PTXAS_REPORT
 
     # 3. kernels against their plain versions -----------------------------
     rng = np.random.default_rng(1)
     spec = ref.AF83
-    from repro_torch.accel import numerics
+    act = numerics.HLSCNN_ACT
+    wspecs = {16: numerics.HLSCNN_WEIGHT_UPDATED, 8: numerics.HLSCNN_WEIGHT_ORIGINAL}
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
@@ -118,7 +159,14 @@ def main() -> int:
         bo = t(rng.integers(-5, -2, B))
         return (x, w, b, bx, numerics.af_exp_bias(w, spec), bo)
 
-    shapes = {
+    def fx_case(B, m, n, k):
+        return (t(rng.standard_normal((B, m, k)) * 4), t(rng.standard_normal((n, k)) * 0.1))
+
+    def i8_case(m, n, k):
+        return tuple(torch.from_numpy(rng.integers(-128, 128, s).astype(np.int8)).to(dev)
+                     for s in ((m, k), (n, k)))
+
+    af_shapes = {
         "test_16x32x64": linear_case(16, 32, 64),
         "test_128x128x128": linear_case(128, 128, 128),
         "test_100x50x200": linear_case(100, 50, 200),
@@ -131,23 +179,63 @@ def main() -> int:
         "fused_8x128x256x128": fused_case(8),
         "fused_16x128x256x128": fused_case(16),
     }
-    worst_kernel = 0.0
+    # (B, M, N, K): the fused HLSCNN conv groups (im2col patches of a
+    # 16x16x32 activation image against the 5x5x32x32 weight), then ragged
+    fx_shapes = {f"{name}_w{bits}": (fx_case(*shape), bits)
+                 for name, shape in (("fused_8x144x32x800", (8, 144, 32, 800)),
+                                     ("fused_16x144x32x800", (16, 144, 32, 800)),
+                                     ("ragged_1x7x5x3", (1, 7, 5, 3)),
+                                     ("ragged_3x33x17x70", (3, 33, 17, 70)),
+                                     ("ragged_2x144x32x75", (2, 144, 32, 75)))
+                 for bits in (16, 8)}
+    i8_shapes = {
+        # ResMLP on VTA in kernel mode: (M, N, K) of its four GEMM shapes
+        "vta_tok_64x16x16": i8_case(64, 16, 16),
+        "vta_fc1_16x128x64": i8_case(16, 128, 64),
+        "vta_fc2_16x64x128": i8_case(16, 64, 128),
+        "vta_head_1x10x64": i8_case(1, 10, 64),
+        # tests/test_kernels.py: (M, N, K)
+        "test_1x3x7": i8_case(1, 3, 7),
+        "test_128x128x128": i8_case(128, 128, 128),
+        "test_200x300x150": i8_case(200, 300, 150),
+    }
+
+    def fx_kernel(args, bits):
+        return fx_gemm(*args, x_spec=act, w_spec=wspecs[bits], o_spec=act)
+
+    def fx_plain(args, bits):
+        return ref.fx_gemm_ref(*args, act, wspecs[bits], act)
+
+    checks = {
+        "af_gemm": [(n, lambda a=a: af_gemm(*a, spec=spec), lambda a=a: ref.af_gemm_ref(*a, spec))
+                    for n, a in af_shapes.items()],
+        "fx_gemm": [(n, lambda a=a, b=b: fx_kernel(a, b), lambda a=a, b=b: fx_plain(a, b))
+                    for n, (a, b) in fx_shapes.items()],
+        "int8_gemm": [(n, lambda a=a: int8_gemm(*a), lambda a=a: ref.int8_gemm_ref(*a))
+                      for n, a in i8_shapes.items()],
+    }
+    worst_kernel = {}
     mismatched = []
-    for name, args in shapes.items():
-        got = af_gemm(*args, spec=spec)
-        want = ref.af_gemm_ref(*args, spec)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        worst_kernel = max(worst_kernel, err)
-        if not torch.equal(got, want):
-            mismatched.append(name)
-    _, worst_vt3 = fa._vt3_linear(device=dev)
-    phase("kernels", shapes=len(shapes), equal=len(shapes) - len(mismatched),
-          max_abs_err=worst_kernel, vt3_worst=worst_vt3)
+    for kname, cases in checks.items():
+        worst_kernel[kname] = 0.0
+        for name, kern, plain in cases:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+            worst_kernel[kname] = max(worst_kernel[kname], err)
+            if not torch.equal(got, want):
+                mismatched.append(f"{kname}:{name}")
+    _, vt3_fasr = fa._vt3_linear(device=dev)
+    _, vt3_vta = vta._vt3_gemm(device=dev)
+    phase("kernels", shapes=sum(len(c) for c in checks.values()),
+          equal=sum(len(c) for c in checks.values()) - len(mismatched),
+          **{f"{k}_max_abs_err": v for k, v in worst_kernel.items()},
+          vt3_flexasr=vt3_fasr, vt3_vta=vt3_vta)
     report["kernel_mismatches"] = mismatched
-    if mismatched or worst_vt3 != 0.0:
-        raise AssertionError(f"af_gemm disagrees with its plain version: {mismatched}, "
-                             f"vt3 worst {worst_vt3}")
+    report["vt3"] = {"flexasr": vt3_fasr, "vta": vt3_vta}
+    if mismatched or vt3_fasr != 0.0 or vt3_vta != 0.0:
+        raise AssertionError(f"kernels disagree with their plain versions: {mismatched}, "
+                             f"vt3 flexasr {vt3_fasr} vta {vt3_vta}")
 
     # 4. the ResMLP Table-4 row --------------------------------------------
     t0 = time.perf_counter()
@@ -163,29 +251,27 @@ def main() -> int:
         "kernel": Executor("kernel", device=dev),
         "fused": Executor("ila", engine="fused", device=dev),
     }
+    chunk = executors["fused"].pipeline_chunk
+    batch = cosim._pipeline_batch(executors["fused"], 16)
+    # fused groups over N_EVAL points: one per pipeline chunk of a minibatch
+    groups = sum(-(-min(batch, N_EVAL - i) // chunk) for i in range(0, N_EVAL, batch))
     rows = {}
-    af_gemm.launches = 0
     for name, ex in executors.items():
-        before = af_gemm.launches
+        zero_counts()
         acc, sec = cosim.eval_classification(res.program, trained, X, y, ex, N_EVAL)
         torch.cuda.synchronize()
-        rows[name] = {"accuracy": acc, "s_per_point": sec,
-                      "af_gemm_launches": af_gemm.launches - before}
-    main_launches = af_gemm.launches
+        rows[name] = {"accuracy": acc, "s_per_point": sec, "launches": read_counts()}
     phase("resmlp", offloads=res.accelerator_calls["flexasr"], setup_s=f"{setup_s:.1f}",
           **{f"{k}_acc": f"{v['accuracy']:.3f}" for k, v in rows.items()},
           **{f"{k}_s_per_pt": f"{v['s_per_point']:.4f}" for k, v in rows.items()},
-          **{f"{k}_launches": v["af_gemm_launches"] for k, v in rows.items()})
+          **{f"{k}_launches": v["launches"]["af_gemm"] for k, v in rows.items()})
     # one launch per linear per point in kernel mode; one per fused linear
     # group (a pipeline chunk of one minibatch) in the fused engine
     n_linear = 7
-    chunk = executors["fused"].pipeline_chunk
-    batch = cosim._pipeline_batch(executors["fused"], 16)
-    groups = sum(-(-min(batch, N_EVAL - i) // chunk) for i in range(0, N_EVAL, batch))
-    expected = {"kernel": n_linear * N_EVAL, "fused": n_linear * groups}
+    expected = {"ideal": 0, "ila": 0, "kernel": n_linear * N_EVAL, "fused": n_linear * groups}
     for name, want in expected.items():
-        if rows[name]["af_gemm_launches"] != want:
-            raise AssertionError(f"{name} launched {rows[name]['af_gemm_launches']}"
+        if rows[name]["launches"]["af_gemm"] != want:
+            raise AssertionError(f"{name} launched {rows[name]['launches']['af_gemm']}"
                                  f" af_gemm kernels, expected {want}")
     logits = {
         name: np.stack([o.reshape(-1) for o in cosim.eval_outputs(
@@ -212,7 +298,74 @@ def main() -> int:
         raise AssertionError(f"only {identical}/{N_EVAL} points bit-identical across "
                              "ila, kernel and fused")
 
-    # 5. timing --------------------------------------------------------------
+    # 5-7. the conv rows, EfficientNet and ResMLP on VTA --------------------
+    def run_app(key, columns, offloads, pairs, fx_per_group=0, i8_per_point=0,
+                params=None):
+        """Drive one application through ``columns``; check offloads, launch
+        counts, finite logits and bit-identity of each (a, b) in ``pairs``."""
+        prep = table4.prepare(table4.APPS[key], dev, TRAIN_STEPS, params=params)
+        ops = [x.op for x in ir.postorder(prep.program) if isinstance(x, ir.Call)]
+        got_offloads = {op: ops.count(op) for op in offloads}
+        if got_offloads != offloads:
+            raise AssertionError(f"{key}: offloads {got_offloads}, expected {offloads}")
+        cols, outs = {}, {}
+        for col in columns:
+            ex = table4.executor(col, dev)
+            zero_counts()
+            acc, sec = table4.evaluate(prep, ex, N_EVAL)
+            torch.cuda.synchronize()
+            cols[col] = {"accuracy": acc, "s_per_point": sec, "launches": read_counts()}
+            outs[col] = table4.logits(prep, ex, N_EVAL)
+            fx_want = fx_per_group * groups if col.startswith("fused") else 0
+            i8_want = i8_per_point * N_EVAL if col == "kernel" else 0
+            got = cols[col]["launches"]
+            if got["fx_gemm"] != fx_want or got["int8_gemm"] != i8_want:
+                raise AssertionError(f"{key}:{col} launched {got}, expected fx_gemm "
+                                     f"{fx_want} and int8_gemm {i8_want}")
+        ideal = outs["ideal"]
+        scale = np.abs(ideal).max(axis=1)
+        rel_dev = {c: float((np.abs(o - ideal).max(axis=1) / scale).max())
+                   for c, o in outs.items() if c != "ideal"}
+        same = {f"{a}=={b}": int(sum(np.array_equal(outs[a][i], outs[b][i])
+                                     for i in range(N_EVAL))) for a, b in pairs}
+        finite = all(np.isfinite(o).all() and o.shape == (N_EVAL, 10) for o in outs.values())
+        phase(key, offloads=prep.offloads, setup_s=f"{prep.setup_s:.1f}",
+              **{f"{c}_acc": f"{v['accuracy']:.3f}" for c, v in cols.items()},
+              **{f"{c}_s_per_pt": f"{v['s_per_point']:.4f}" for c, v in cols.items()},
+              **{f"{c}_launches": "/".join(str(n) for n in v["launches"].values())
+                 for c, v in cols.items()},
+              bit_identical=same, finite=finite)
+        report[key] = {"columns": cols, "rel_dev": rel_dev, "bit_identical": same,
+                       "setup_s": prep.setup_s, "offloads": prep.offloads,
+                       "finite": finite}
+        if not finite:
+            raise AssertionError(f"{key}: non-finite or misshapen logits")
+        if any(n != N_EVAL for n in same.values()):
+            raise AssertionError(f"{key}: columns not bit-identical on every point: {same}")
+        return prep, cols
+
+    conv_cols = ("ideal", "ila-8", "ila-16", "fused-8", "fused-16")
+    conv_pairs = (("ila-8", "fused-8"), ("ila-16", "fused-16"))
+    finding = {}
+    for key in ("resnet20", "mobilenet_v2"):
+        prep, cols = run_app(key, conv_cols, {"hlscnn_conv2d": 7, "fasr_linear": 1},
+                             conv_pairs, fx_per_group=7)
+        finding[key] = {"reference": cols["ideal"]["accuracy"],
+                        "original": cols["ila-8"]["accuracy"],
+                        "updated": cols["ila-16"]["accuracy"]}
+        if key == "resnet20":
+            resnet_prep = prep
+    phase("table4_finding", **{k: "ref={reference:.3f}/orig={original:.3f}/upd={updated:.3f}"
+                               .format(**v) for k, v in finding.items()})
+    report["table4_finding"] = finding
+    run_app("efficientnet", ("ideal", "ila-16", "fused-16"),
+            {"veu_mul": 3, "veu_sigmoid": 3, "hlscnn_conv2d": 4, "fasr_linear": 2},
+            (("ila-16", "fused-16"),), fx_per_group=4)
+    run_app("resmlp_vta", ("ideal", "ila", "kernel"),
+            {"vta_gemm": 7, "vta_add": 4, "vta_relu": 2}, (("ila", "kernel"),),
+            i8_per_point=7, params=trained)
+
+    # 8. timing --------------------------------------------------------------
     def graph_ms(fn, reps=20, iters=25):
         """Device time per call: ``reps`` calls captured in one CUDA graph,
         replayed ``iters`` times between CUDA events (no host overhead)."""
@@ -249,75 +402,121 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    def bound_ms(args):
+    def bound_ms(nbytes, ops, peak):
         """Least time for the work: each input read once and the output
-        written once at HBM rate, or 2*B*M*N*K operations at the bf16
-        tensor-core peak (exact for AF(8,3) operands), whichever is longer."""
-        x, w, b = args[:3]
-        M, K = x.shape[-2:]
-        N = w.shape[-2]
-        B = x.shape[0] if x.dim() == 3 else 1
-        nbytes = sum(a.numel() * 4 for a in args if torch.is_tensor(a)) + B * M * N * 4
-        flops = 2 * B * M * N * K
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+        written once at HBM rate, or the operations at the peak rate of the
+        operands' type, whichever is longer."""
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
+    def nbytes(tensors, out):
+        return sum(a.numel() * a.element_size() for a in tensors if torch.is_tensor(a)) \
+            + out.numel() * out.element_size()
+
+    def af_bound(args):
+        x, w = args[:2]
+        M, K = x.shape[-2:]
+        B = x.shape[0] if x.dim() == 3 else 1
+        out = torch.empty((B, M, w.shape[-2]), device=dev)
+        return bound_ms(nbytes(args, out), 2 * out.numel() * K, PEAK_BF16_FLOPS)
+
+    def fx_bound(args):
+        x, w = args
+        out = torch.empty(x.shape[:-1] + (w.shape[0],), device=dev)
+        return bound_ms(nbytes(args, out), 2 * out.numel() * x.shape[-1], PEAK_FP32_FLOPS)
+
+    def i8_bound(args):
+        a, b = args
+        out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.int32, device=dev)
+        return bound_ms(nbytes(args, out), 2 * out.numel() * a.shape[1], PEAK_INT8_OPS)
+
+    def library(args):
+        """torch._int_mm where it accepts the shape (M > 16, K and N
+        multiples of 8): the library int8 GEMM, timed only."""
+        a, b = args
+        if a.shape[0] > 16 and a.shape[1] % 8 == 0 and b.shape[0] % 8 == 0:
+            return lambda: torch._int_mm(a, b.t())
+        return None
+
+    timed = [("af_gemm", n, lambda a=af_shapes[n]: af_gemm(*a, spec=spec),
+              lambda a=af_shapes[n]: ref.af_gemm_ref(*a, spec), af_bound(af_shapes[n]), None)
+             for n in ("fused_8x128x256x128", "fused_16x128x256x128", "resmlp_tok_64x16x16",
+                       "resmlp_fc1_16x128x64", "resmlp_fc2_16x64x128", "resmlp_head_1x10x64")]
+    timed += [("fx_gemm", n, lambda a=fx_shapes[n]: fx_kernel(*a),
+               lambda a=fx_shapes[n]: fx_plain(*a), fx_bound(fx_shapes[n][0]), None)
+              for n in ("fused_8x144x32x800_w16", "fused_8x144x32x800_w8",
+                        "fused_16x144x32x800_w16")]
+    timed += [("int8_gemm", n, lambda a=i8_shapes[n]: int8_gemm(*a),
+               lambda a=i8_shapes[n]: ref.int8_gemm_ref(*a), i8_bound(i8_shapes[n]),
+               library(i8_shapes[n]))
+              for n in ("vta_tok_64x16x16", "vta_fc1_16x128x64", "vta_fc2_16x64x128",
+                        "vta_head_1x10x64")]
     timings = {}
-    for name in ("fused_8x128x256x128", "fused_16x128x256x128", "resmlp_tok_64x16x16",
-                 "resmlp_fc1_16x128x64", "resmlp_fc2_16x64x128", "resmlp_head_1x10x64"):
-        args = shapes[name]
-        kern = lambda: af_gemm(*args, spec=spec)
-        plain = lambda: ref.af_gemm_ref(*args, spec)
-        before = af_gemm.launches
+    for kname, name, kern, plain, (b_ms, b_by), lib in timed:
         # plain, kernel, kernel, plain: the two versions in turns
         runs = [graph_ms(plain), graph_ms(kern), graph_ms(kern), graph_ms(plain)]
         calls = [call_ms(kern), call_ms(plain)]
-        af_gemm.launches = before
-        b_ms, b_by = bound_ms(args)
-        timings[name] = {"ms": min(runs[1:3]), "plain_ms": min(runs[0], runs[3]),
-                         "bound_ms": b_ms, "bound_by": b_by, "graph_runs_ms": runs,
-                         "call_ms": calls[0], "plain_call_ms": calls[1]}
-    # the kernel line reports the fused group shape the main path launched
-    fz = timings["fused_8x128x256x128"]
+        timings[f"{kname}:{name}"] = {
+            "ms": min(runs[1:3]), "plain_ms": min(runs[0], runs[3]), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": graph_ms(lib) if lib is not None else None,
+            "graph_runs_ms": runs, "call_ms": calls[0], "plain_call_ms": calls[1]}
+    zero_counts()  # timing launches are not main-path launches
     phase("timing", **{f"{k}_ms": f"{v['ms']:.5f}/{v['plain_ms']:.5f}/{v['bound_ms']:.5f}"
-                       for k, v in timings.items()}, library="none")
+                       + (f"/lib={v['library_ms']:.5f}" if v["library_ms"] is not None else "")
+                       for k, v in timings.items()})
     report["timing"] = timings
 
-    # where the time goes: device busy share over one fused-engine minibatch
-    try:
-        from torch.profiler import ProfilerActivity, profile
+    # 9. where the time goes: device busy share over one fused minibatch ------
+    from torch.profiler import ProfilerActivity, profile
 
+    def busy_share(label, program, params_, X_, y_, ex):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            cosim.eval_classification(res.program, trained, X, y, executors["fused"], 16)
+            cosim.eval_classification(program, params_, X_, y_, ex, 16)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels_us = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                       if e.self_device_time_total > 0]
         busy = sum(k[1] for k in kernels_us) / 1e6
+        if busy <= 0:
+            raise AssertionError(f"{label}: the profiler saw no device activity")
         kernels_us.sort(key=lambda k: -k[1])
-        report["profile_fused_16pt"] = {"wall_s": wall, "device_busy_s": busy,
-                                        "top": kernels_us[:15]}
-        phase("profile", engine="fused", points=16, wall_s=f"{wall:.4f}",
+        report[f"profile_{label}"] = {"wall_s": wall, "device_busy_s": busy,
+                                      "top": kernels_us[:15]}
+        phase("profile", row=label, engine="fused", points=16, wall_s=f"{wall:.4f}",
               device_busy_s=f"{busy:.5f}", busy_share=f"{busy / wall:.4f}")
-    except Exception as err:  # the profiler is a diagnostic, not a gate
-        report["profile_fused_16pt"] = f"not measured: {err!r}"
-        phase("profile", busy_share="not_measured")
 
-    kernels = [{
-        "name": "af_gemm",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/af_gemm.cu",
-        "replaces": "src/repro/kernels/af_gemm.py:68",
-        "launches": main_launches,
-        "max_abs_err": worst_kernel,
-        "ms": fz["ms"],
-        "plain_ms": fz["plain_ms"],
-        "bound_ms": fz["bound_ms"],
-        "bound_by": fz["bound_by"],
-        "library_ms": None,
-    }]
+    busy_share("resmlp", res.program, trained, X, y, executors["fused"])
+    busy_share("resnet20", resnet_prep.program, resnet_prep.params, resnet_prep.X,
+               resnet_prep.y, table4.executor("fused-16", dev))
+    zero_counts()
+
+    # the kernel line: the shape each kernel's main path launched most
+    line_shape = {"af_gemm": "fused_8x128x256x128", "fx_gemm": "fused_8x144x32x800_w16",
+                  "int8_gemm": "vta_tok_64x16x16"}
+    replaces = {"af_gemm": "src/repro/kernels/af_gemm.py:68",
+                "fx_gemm": "src/repro/kernels/fx_gemm.py:53",
+                "int8_gemm": "src/repro/kernels/int8_gemm.py:39"}
+    kernels = []
+    for kname in wrappers:
+        tm = timings[f"{kname}:{line_shape[kname]}"]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{kname}.cu",
+            "replaces": replaces[kname],
+            "launches": path_launches[kname],
+            "max_abs_err": worst_kernel[kname],
+            "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"],
+        })
+        if path_launches[kname] <= 0:
+            raise AssertionError(f"{kname} was never launched on the main path")
     report["kernels"] = kernels
+    report["kernel_line_shapes"] = line_shape
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))

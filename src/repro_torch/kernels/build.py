@@ -23,7 +23,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 #: kernel name -> source file under csrc/
-SOURCES: Dict[str, str] = {"af_gemm": "af_gemm.cu"}
+SOURCES: Dict[str, str] = {
+    "af_gemm": "af_gemm.cu",
+    "fx_gemm": "fx_gemm.cu",
+    "int8_gemm": "int8_gemm.cu",
+}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -10,6 +10,22 @@ import torch
 from ..accel import numerics
 from ..accel.numerics import AdaptivFloatSpec
 from .af_gemm import af_gemm
+from .fx_gemm import fx_gemm as _fx_gemm
+from .int8_gemm import int8_gemm as _int8_gemm
+
+
+def int8_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M,K) int8 @ (N,K)^T int8 -> (M,N) int32, arbitrary shapes."""
+    return _int8_gemm(a.contiguous(), b.contiguous())
+
+
+def fx_gemm(x: torch.Tensor, w: torch.Tensor, wgt_bits: int = 16) -> torch.Tensor:
+    """HLSCNN's conv PE array on im2col patches: 16-bit activations and
+    output (``HLSCNN_ACT``), 16- or 8-bit weights per CFG_DTYPE."""
+    w_spec = numerics.HLSCNN_WEIGHT_UPDATED if wgt_bits >= 16 \
+        else numerics.HLSCNN_WEIGHT_ORIGINAL
+    return _fx_gemm(x.contiguous(), w.contiguous(), x_spec=numerics.HLSCNN_ACT,
+                    w_spec=w_spec, o_spec=numerics.HLSCNN_ACT)
 
 
 def af_linear(

@@ -1,5 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels (the ``ref.py`` contract).
 
+af_gemm_ref, fx_gemm_ref and int8_gemm_ref.
+
 Each function computes what its kernel computes, in ordinary tensor ops: the
 CPU runs it in place of the kernel, and tests and ``chip_smoke.py`` hold the
 kernel against it on the card. Nothing on the main path calls it when a
@@ -14,9 +16,36 @@ from __future__ import annotations
 import torch
 
 from ..accel import numerics
-from ..accel.numerics import AdaptivFloatSpec
+from ..accel.numerics import AdaptivFloatSpec, FixedPointSpec
 
 AF83 = AdaptivFloatSpec(8, 3)
+
+
+def int8_gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a:(M,K) int8, b:(N,K) int8 -> (M,N) int32, exact. The product runs
+    in float64, which every device multiplies (CUDA has no integer matmul):
+    each |a·b| <= 2^14, so for K < 2^17 every partial sum is an integer
+    below 2^31, exact in float64 in any order and in int32."""
+    return (a.double() @ b.double().mT).to(torch.int32)
+
+
+def fx_gemm_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    x_spec: FixedPointSpec,
+    w_spec: FixedPointSpec,
+    o_spec: FixedPointSpec,
+) -> torch.Tensor:
+    """HLSCNN's fixed-point GEMM: ``FXq_o(FXq_x(x) @ FXq_w(w)^T)``.
+
+    x: (M, K) or (B, M, K); w: (N, K) or (B, N, K). The quantized operands
+    are integers on 2^-f grids, so every product and every sum of up to
+    2^(53 - bx - bw + 2) of them is exact in float64, in any order: the sum
+    is taken in float64, rounded once to float32, then quantized.
+    """
+    xq = numerics.fx_quantize(x, x_spec).double()
+    wq = numerics.fx_quantize(w, w_spec).double()
+    return numerics.fx_quantize((xq @ wq.mT).float(), o_spec)
 
 
 def _bias(v, like: torch.Tensor) -> torch.Tensor:

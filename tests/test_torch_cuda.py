@@ -5,16 +5,21 @@ the file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-``af_gemm`` must equal its plain PyTorch version bit for bit at the main
-path's shapes, count exactly its own launches, and agree with the FlexASR
-ILA simulator (VT3, worst deviation 0.0).
+Each kernel (``af_gemm``, ``fx_gemm``, ``int8_gemm``) must equal its plain
+PyTorch version bit for bit at the main path's shapes, count exactly its own
+launches and refuse inputs it does not take; FlexASR's and VTA's ILA
+simulators agree with their kernels (VT3, worst deviation 0.0), and the
+HLSCNN fused engine (``fx_gemm``) is bit-identical to the compiled ILA on
+the card and to the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.accel import flexasr as fa, numerics
-from repro_torch.kernels import af_gemm as kaf, ref
+from repro_torch.accel import flexasr as fa, hlscnn as hl, numerics, vta
+from repro_torch.core import ir
+from repro_torch.core.codegen import Executor
+from repro_torch.kernels import af_gemm as kaf, fx_gemm as kfx, int8_gemm as ki8, ref
 
 SPEC = numerics.AdaptivFloatSpec(8, 3)
 SHAPES = [(16, 32, 64), (128, 128, 128), (100, 50, 200),
@@ -24,7 +29,7 @@ SHAPES = [(16, 32, 64), (128, 128, 128), (100, 50, 200),
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the af_gemm kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -78,3 +83,106 @@ def test_af_gemm_rejects_bad_inputs(cuda_device):
         kaf.af_gemm(x, w[:, :8].contiguous(), b, 0.0, 0.0, 0.0)
     with pytest.raises(ValueError):
         kaf.af_gemm(x.t(), w, b, 0.0, 0.0, 0.0)
+
+
+#: (B, M, N, K) of fx_gemm: the fused HLSCNN groups, then ragged shapes
+FX_SHAPES = [(8, 144, 32, 800), (16, 144, 32, 800), (1, 7, 5, 3), (3, 33, 17, 70),
+             (2, 144, 32, 75)]
+#: (M, N, K) of int8_gemm: ResMLP on VTA in kernel mode, then tests/test_kernels.py
+I8_SHAPES = [(64, 16, 16), (16, 128, 64), (16, 64, 128), (1, 10, 64),
+             (1, 3, 7), (128, 128, 128), (200, 300, 150)]
+
+
+def _patches(B, M, N, K, dev, seed=3):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((B, M, K)) * 4).astype(np.float32)
+    w = (rng.standard_normal((N, K)) * 0.1).astype(np.float32)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8])
+@pytest.mark.parametrize("B,M,N,K", FX_SHAPES)
+def test_fx_gemm_equals_plain(B, M, N, K, bits, cuda_device):
+    x, w = _patches(B, M, N, K, cuda_device)
+    wspec = numerics.HLSCNN_WEIGHT_UPDATED if bits == 16 else numerics.HLSCNN_WEIGHT_ORIGINAL
+    specs = dict(x_spec=numerics.HLSCNN_ACT, w_spec=wspec, o_spec=numerics.HLSCNN_ACT)
+    before = kfx.fx_gemm.launches
+    got = kfx.fx_gemm(x, w, **specs)
+    assert kfx.fx_gemm.launches == before + 1
+    want = ref.fx_gemm_ref(x, w, specs["x_spec"], wspec, specs["o_spec"])
+    assert torch.equal(got, want)
+    assert torch.equal(got, kfx.fx_gemm(x.cpu(), w.cpu(), **specs).to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", I8_SHAPES)
+def test_int8_gemm_equals_plain(M, N, K, cuda_device):
+    rng = np.random.default_rng(M * N + K)
+    a = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8)).to(cuda_device)
+    b = torch.from_numpy(rng.integers(-128, 128, (N, K)).astype(np.int8)).to(cuda_device)
+    before = ki8.int8_gemm.launches
+    got = ki8.int8_gemm(a, b)
+    assert ki8.int8_gemm.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.int8_gemm_ref(a, b))
+    assert torch.equal(got.cpu(), a.cpu().int() @ b.cpu().int().T)
+
+
+@pytest.mark.cuda
+def test_vta_vt3_ila_vs_kernel_on_card(cuda_device):
+    ok, worst = vta.TARGET.vt3_checks["gemm_ila_vs_int8_gemm_kernel"](device=cuda_device)
+    assert ok and worst == 0.0
+
+
+@pytest.mark.cuda
+def test_fx_and_int8_gemm_reject_bad_inputs(cuda_device):
+    before = kfx.fx_gemm.launches, ki8.int8_gemm.launches
+    x, w = _patches(1, 8, 4, 16, cuda_device)
+    specs = dict(x_spec=numerics.HLSCNN_ACT, w_spec=numerics.HLSCNN_WEIGHT_UPDATED,
+                 o_spec=numerics.HLSCNN_ACT)
+    with pytest.raises(TypeError):
+        kfx.fx_gemm(x.double(), w, **specs)
+    with pytest.raises(ValueError):
+        kfx.fx_gemm(x, w[:, :8].contiguous(), **specs)
+    with pytest.raises(ValueError):
+        kfx.fx_gemm(x[0].t(), w, **specs)
+    with pytest.raises(ValueError, match="exact"):
+        kfx.fx_gemm(torch.zeros((2, 2 ** 23), device=cuda_device),
+                    torch.zeros((2, 2 ** 23), device=cuda_device), **specs)
+    a = torch.zeros((4, 8), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(TypeError):
+        ki8.int8_gemm(a.int(), a)
+    with pytest.raises(ValueError):
+        ki8.int8_gemm(a, a[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        ki8.int8_gemm(a.t(), a)
+    assert (kfx.fx_gemm.launches, ki8.int8_gemm.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+def test_hlscnn_fused_engine_bit_identical_on_card(bits, cuda_device):
+    """The fused conv runner (one fx_gemm launch per group) equals the
+    compiled ILA on the card, and both equal the CPU run."""
+    rng = np.random.default_rng(bits)
+    xs = [rng.standard_normal((1, 12, 12, 8)).astype(np.float32) for _ in range(3)]
+    w = (rng.standard_normal((3, 3, 8, 16)) * 0.1).astype(np.float32)
+    e = ir.call("hlscnn_conv2d", ir.Var("x", (1, 12, 12, 8)), ir.Var("w", w.shape),
+                strides=(1, 1), padding=(1, 1))
+    envs = [{"x": x, "w": w} for x in xs]
+    opts = {"hlscnn": {"wgt_bits": bits}}
+    outs = {}
+    for dev in (cuda_device, "cpu"):
+        for engine in ("compiled", "fused"):
+            ex = Executor("ila", engine=engine, target_options=opts, device=dev)
+            before = kfx.fx_gemm.launches
+            outs[(str(dev), engine)] = [np.asarray(o) for o in ex.run_many(e, envs)]
+            launched = kfx.fx_gemm.launches - before
+            assert launched == (1 if (engine == "fused" and str(dev) != "cpu") else 0)
+    ref_out = outs[("cpu", "compiled")]
+    for key, got in outs.items():
+        for g, r in zip(got, ref_out):
+            np.testing.assert_array_equal(g, r, err_msg=str(key))
+    assert hl.TARGET.fused_runner(hl.conv2d_fragment(w, (14, 14, 8), wgt_bits=bits),
+                                  cuda_device).lowering == "kernel"

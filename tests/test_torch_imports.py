@@ -32,10 +32,16 @@ SLICE_MODULES = [
     "repro_torch.accel.numerics",
     "repro_torch.accel.target",
     "repro_torch.accel.flexasr",
+    "repro_torch.accel.hlscnn",
+    "repro_torch.accel.vecunit",
+    "repro_torch.accel.vta",
     "repro_torch.kernels.ref",
     "repro_torch.kernels.build",
     "repro_torch.kernels.af_gemm",
+    "repro_torch.kernels.fx_gemm",
+    "repro_torch.kernels.int8_gemm",
     "repro_torch.kernels.ops",
+    "repro_torch.launch.table4",
 ]
 
 _FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax\b|jaxlib\b|repro(?:\.|\s|$))")
@@ -51,7 +57,7 @@ def test_slice_modules_import_with_jax_blocked():
         "leaked = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not leaked, leaked\n"
         "from repro_torch.core.ila import TARGETS\n"
-        "assert TARGETS.names() == ['flexasr'], TARGETS.names()\n"
+        "assert TARGETS.names() == ['flexasr', 'hlscnn', 'vecunit', 'vta'], TARGETS.names()\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -82,10 +88,13 @@ def test_executor_without_device_raises_when_cuda_absent(monkeypatch):
     assert Executor("ila", device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("entry", ["interpret", "init_state", "setup_state", "teacher"])
+@pytest.mark.parametrize("entry", ["interpret", "init_state", "setup_state", "teacher",
+                                   "hlscnn_init_state", "vta_init_state",
+                                   "vecunit_init_state", "table4_row"])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
-    from repro_torch.accel import flexasr as fa
+    from repro_torch.accel import flexasr as fa, hlscnn, vecunit, vta
     from repro_torch.core import apps, cosim, ir
+    from repro_torch.launch import table4
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = ir.Var("x", (2, 3))
@@ -94,6 +103,10 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
         "init_state": lambda: fa.flexasr.init_state(),
         "setup_state": lambda: fa.pool_fragment(8, "max", cache=False).setup_state(),
         "teacher": lambda: cosim.make_teacher_task(apps.build_resmlp, (16, 64), n=4),
+        "hlscnn_init_state": lambda: hlscnn.hlscnn.init_state(),
+        "vta_init_state": lambda: vta.vta.init_state(),
+        "vecunit_init_state": lambda: vecunit.vecunit.init_state(),
+        "table4_row": lambda: table4.acc_row(table4.APPS["resnet20"], n_eval=1, steps=1),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
