@@ -9,8 +9,12 @@ without one). Phases, one line each:
 2. build     compile every CUDA kernel of the path from src/repro_torch/csrc
              (one nvcc per source, all started together)
 3. kernels   each kernel against its plain PyTorch version on the card, at the
-             shapes the main path gives it (``torch.equal``), and the FlexASR
-             and VTA VT3 checks (ILA simulator vs kernel, worst deviation 0.0)
+             shapes the main path gives it (``torch.equal`` for the three
+             GEMMs; flash_attention at the eight shapes of the LM configs,
+             each in fp32 within 2e-5 and in bf16 within one bf16 step of
+             the plain output and within 3e-2), and the
+             FlexASR and VTA VT3 checks (ILA simulator vs kernel, worst
+             deviation 0.0)
 4. resmlp    the paper's Table-4 ResMLP row on FlexASR at the repository's
              configuration: teacher task, 600 training steps, flexible
              matching, then 40 points through the ideal, ILA (compiled),
@@ -36,9 +40,27 @@ without one). Phases, one line each:
              kernel column, which is bit-identical to ila
 8. timing    kernel, plain version, bound and (where one exists) the PyTorch
              library call at the main path's shapes (CUDA events around
-             CUDA-graph replays, after a warm-up)
+             CUDA-graph replays, after a warm-up); flash_attention at the
+             TinyLlama prefill shape, against scaled_dot_product_attention
 9. profile   the device's busy share over one fused-engine minibatch of the
              ResMLP row and of the ResNet-20 row (torch.profiler)
+10. lm_serve TinyLlama-1.1B at full width (22 layers, d_model 2048, 32/4
+             heads, vocab 32000), bf16 weights from a seeded generator on the
+             card: ``launch.serve.generate`` serves 4 prompts of 1024 tokens
+             and 32 generated tokens after a warm-up; prefill seconds, decode
+             ms/step, tokens/s, and the busy share of a prefill and of 8
+             decode steps (torch.profiler). Gates: 22 flash_attention launches
+             in prefill and 0 in decode, ids within the vocabulary, finite
+             logits
+11. lm_consistency
+             the same weights cast to fp32: ``forward`` over prompt +
+             generated tokens (the kernel) against prefill + decode (kernel
+             prefill, plain decode) at the generated positions; max relative
+             deviation below 2e-2 (tests/test_models.py's bound)
+12. lm_cpu_parity
+             the TinyLlama smoke config on identical seeded fp32 weights on
+             the card (kernel) and on the CPU (plain version): last-position
+             prefill logits within rtol = atol = 1e-4
 
 Every count of kernel launches is set to 0 just before a path runs and read
 just after it. Then one JSON line per kernel (``{"kernels": [...]}``), the
@@ -67,6 +89,18 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
+#: flash_attention against its plain version: tests/test_kernels.py's
+#: tolerances (fp32 sums in another order; a few bf16 steps of outputs near 1)
+FLASH_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+#: and, in bf16, elementwise |got - want| <= 2e-5 + 2^-7 |want|: both round
+#: the same fp32 function to nearest even, so they differ by at most one
+#: bf16 step (2^-7 of |want| at most) over the fp32 sums' own difference
+FLASH_BF16_STEP = 2.0 ** -7
+#: the LM serving path: TinyLlama-1.1B, 4 prompts of 1024 tokens, 32 more
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "tinyllama_1_1b", 4, 1024, 32
+#: fp32 forward vs prefill + decode (tests/test_models.py:60); card vs CPU
+LM_CONSISTENCY_TOL, LM_CPU_TOL = 2e-2, 1e-4
+
 N_EVAL = 40
 TRAIN_STEPS = 600
 #: fasr_linear's declared tolerance (Intrinsic.tol)
@@ -79,8 +113,11 @@ def phase(label: str, **fields) -> None:
 
 
 def main() -> int:
+    import copy
+
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -92,14 +129,19 @@ def main() -> int:
     from repro_torch.core.codegen import Executor
     from repro_torch.core.compile import compile_program
     from repro_torch.kernels import build, ref
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels.af_gemm import af_gemm
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fx_gemm import fx_gemm
     from repro_torch.kernels.int8_gemm import int8_gemm
     from repro_torch.launch import table4
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import api as lm_api
 
     report = {}
     dev = devmod.resolve("cuda")
-    wrappers = {"af_gemm": af_gemm, "fx_gemm": fx_gemm, "int8_gemm": int8_gemm}
+    wrappers = {"af_gemm": af_gemm, "fx_gemm": fx_gemm, "int8_gemm": int8_gemm,
+                "flash_attention": flash_attention}
     #: per kernel, launches summed over every main-path run (read per path)
     path_launches = {name: 0 for name in wrappers}
 
@@ -225,10 +267,43 @@ def main() -> int:
             worst_kernel[kname] = max(worst_kernel[kname], err)
             if not torch.equal(got, want):
                 mismatched.append(f"{kname}:{name}")
+    # (B, Hq, Hkv, S, Sk, D, causal), each in bf16 and in fp32 on the same
+    # values: q, k, v made (B, S, H, D) as the models hold them and passed as
+    # (B, H, S, D) views
+    flash_shapes = {
+        "tinyllama_prefill": (4, 32, 4, 1024, 1024, 64, True),
+        "ragged_prompt": (4, 32, 4, 1000, 1000, 64, True),
+        "whisper_encoder": (1, 8, 8, 1500, 1500, 64, False),
+        "whisper_cross": (1, 8, 8, 32, 1500, 64, False),
+        "granite_qwen3": (1, 32, 8, 512, 512, 128, True),
+        "zamba2": (1, 32, 32, 512, 512, 112, True),
+        "gemma": (1, 16, 16, 512, 512, 256, True),
+        "mla_v_padded": (1, 16, 16, 256, 256, 192, True),
+    }
+    flash_cases = {}
+    for name, (B, Hq, Hkv, S, Sk, D, causal) in flash_shapes.items():
+        qkv = [t(rng.standard_normal(shape))
+               for shape in ((B, S, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
+        for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            flash_cases[f"{name}_{tag}"] = tuple(a.to(dtype).transpose(1, 2) for a in qkv), causal
+    flash_err = {}
+    for name, (args, causal) in flash_cases.items():
+        got = flash_attention(*args, causal=causal).float()
+        want = ref.flash_attention_ref(*args, causal=causal).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        flash_err[name] = float(err.max())
+        limit = FLASH_ATOL[str(args[0].dtype).removeprefix("torch.")]
+        if args[0].dtype == torch.bfloat16:
+            limit = (FLASH_ATOL["float32"] + FLASH_BF16_STEP * want.abs()).clamp(max=limit)
+        if not bool((err <= limit).all()):
+            mismatched.append(f"flash_attention:{name}")
+    worst_kernel["flash_attention"] = max(flash_err.values())
+    report["flash_attention_err"] = flash_err
     _, vt3_fasr = fa._vt3_linear(device=dev)
     _, vt3_vta = vta._vt3_gemm(device=dev)
-    phase("kernels", shapes=sum(len(c) for c in checks.values()),
-          equal=sum(len(c) for c in checks.values()) - len(mismatched),
+    n_checked = sum(len(c) for c in checks.values()) + len(flash_cases)
+    phase("kernels", shapes=n_checked, within_tolerance=n_checked - len(mismatched),
           **{f"{k}_max_abs_err": v for k, v in worst_kernel.items()},
           vt3_flexasr=vt3_fasr, vt3_vta=vt3_vta)
     report["kernel_mismatches"] = mismatched
@@ -451,6 +526,44 @@ def main() -> int:
                library(i8_shapes[n]))
               for n in ("vta_tok_64x16x16", "vta_fc1_16x128x64", "vta_fc2_16x64x128",
                         "vta_head_1x10x64")]
+
+    def flash_pairs(q, k, causal):
+        """Score pairs the mask keeps (top-left causal), over all heads."""
+        B, Hq, S, _ = q.shape
+        Sk = k.shape[2]
+        return B * Hq * (sum(min(i + 1, Sk) for i in range(S)) if causal else S * Sk)
+
+    def flash_bound(args, causal):
+        """Bytes: q, k, v read once and the output written once. Operations:
+        P.V at the fp32 rate, since P is fp32; Q.K^T at the rate its inputs
+        are exact. For bf16 inputs that is the tensor cores, a unit beside
+        the fp32 one, so the slower product bounds the two; for fp32 inputs
+        both products share the fp32 units and add."""
+        q, k, _ = args
+        flops = 2 * flash_pairs(q, k, causal) * q.shape[3]
+        if q.dtype == torch.bfloat16:
+            t_ops = max(flops / PEAK_BF16_FLOPS, flops / PEAK_FP32_FLOPS) * 1e3
+        else:
+            t_ops = 2 * flops / PEAK_FP32_FLOPS * 1e3
+        t_bytes = (nbytes(args, q) / PEAK_BYTES) * 1e3   # the output is q-sized
+        return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else "operations")
+
+    def flash_split_bound(args, causal):
+        """The bound of the wgmma design for bf16 inputs: Q.K^T once and P.V
+        with P split into three bf16 terms (exact), all on the bf16 tensor
+        cores, or the bytes, whichever is longer."""
+        q, k, _ = args
+        flops = 2 * flash_pairs(q, k, causal) * q.shape[3]
+        return max(4 * flops / PEAK_BF16_FLOPS, nbytes(args, q) / PEAK_BYTES) * 1e3
+
+    for n in ("tinyllama_prefill_bf16", "tinyllama_prefill_fp32"):
+        args, causal = flash_cases[n]
+        timed.append(("flash_attention", n,
+                      lambda a=args, c=causal: flash_attention(*a, causal=c),
+                      lambda a=args, c=causal: ref.flash_attention_ref(*a, causal=c),
+                      flash_bound(args, causal),
+                      lambda a=args, c=causal: F.scaled_dot_product_attention(
+                          *a, is_causal=c, enable_gqa=True)))
     timings = {}
     for kname, name, kern, plain, (b_ms, b_by), lib in timed:
         # plain, kernel, kernel, plain: the two versions in turns
@@ -460,8 +573,10 @@ def main() -> int:
             "ms": min(runs[1:3]), "plain_ms": min(runs[0], runs[3]), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": graph_ms(lib) if lib is not None else None,
             "graph_runs_ms": runs, "call_ms": calls[0], "plain_call_ms": calls[1]}
+    split_ms = flash_split_bound(*flash_cases["tinyllama_prefill_bf16"])
+    timings["flash_attention:tinyllama_prefill_bf16"]["split_bound_ms"] = split_ms
     zero_counts()  # timing launches are not main-path launches
-    phase("timing", **{f"{k}_ms": f"{v['ms']:.5f}/{v['plain_ms']:.5f}/{v['bound_ms']:.5f}"
+    phase("timing", flash_attention_split_bound_ms=f"{split_ms:.5f}", **{f"{k}_ms": f"{v['ms']:.5f}/{v['plain_ms']:.5f}/{v['bound_ms']:.5f}"
                        + (f"/lib={v['library_ms']:.5f}" if v["library_ms"] is not None else "")
                        for k, v in timings.items()})
     report["timing"] = timings
@@ -469,20 +584,24 @@ def main() -> int:
     # 9. where the time goes: device busy share over one fused minibatch ------
     from torch.profiler import ProfilerActivity, profile
 
-    def busy_share(label, program, params_, X_, y_, ex):
+    def device_busy(label, fn):
+        """(wall s, device busy s, top kernels) of one call of ``fn``."""
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            cosim.eval_classification(program, params_, X_, y_, ex, 16)
+            fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kernels_us = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                      if e.self_device_time_total > 0]
-        busy = sum(k[1] for k in kernels_us) / 1e6
+        rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                       if e.self_device_time_total > 0), key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows) / 1e6
         if busy <= 0:
             raise AssertionError(f"{label}: the profiler saw no device activity")
-        kernels_us.sort(key=lambda k: -k[1])
-        report[f"profile_{label}"] = {"wall_s": wall, "device_busy_s": busy,
-                                      "top": kernels_us[:15]}
+        return wall, busy, rows[:15]
+
+    def busy_share(label, program, params_, X_, y_, ex):
+        wall, busy, top = device_busy(label, lambda: cosim.eval_classification(
+            program, params_, X_, y_, ex, 16))
+        report[f"profile_{label}"] = {"wall_s": wall, "device_busy_s": busy, "top": top}
         phase("profile", row=label, engine="fused", points=16, wall_s=f"{wall:.4f}",
               device_busy_s=f"{busy:.5f}", busy_share=f"{busy / wall:.4f}")
 
@@ -491,12 +610,114 @@ def main() -> int:
                resnet_prep.y, table4.executor("fused-16", dev))
     zero_counts()
 
+    # 10. TinyLlama-1.1B serving at full width ---------------------------------
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = lm_api.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(dev)
+    generate(cfg, model, prompt, 2)   # warm-up: cuBLAS handles, first launches
+    torch.cuda.synchronize()
+    lm_setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    stats = {}
+    tokens = generate(cfg, model, prompt, LM_GEN, stats)
+    counts = read_counts()
+    steps = stats["decode_steps"]
+    serve = {
+        "setup_s": lm_setup_s, "prefill_s": stats["prefill_s"],
+        "decode_ms_per_step": stats["decode_s"] / steps * 1e3,
+        "generated_tok_s": LM_BATCH * LM_GEN / (stats["prefill_s"] + stats["decode_s"]),
+        "decode_tok_s": LM_BATCH * steps / stats["decode_s"],
+        "prefill_tok_s": LM_BATCH * LM_PROMPT / stats["prefill_s"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": counts, "prefill_launches": stats["prefill_launches"],
+        "decode_launches": stats["decode_launches"], "finite": stats["finite"],
+        "in_vocab": bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+        "tokens_head": tokens[0, :8].tolist(),
+    }
+    cache = lm_api.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, torch.bfloat16, dev)
+    for label, fn in (
+            ("prefill", lambda: lm_api.prefill(cfg, model, prompt, cache)),
+            ("decode_8_steps", lambda: [lm_api.decode_step(cfg, model, cache, tokens[:, i:i + 1],
+                                                           LM_PROMPT + i) for i in range(8)])):
+        wall, busy, top = device_busy(label, fn)
+        serve[f"profile_{label}"] = {"wall_s": wall, "device_busy_s": busy,
+                                     "busy_share": busy / wall, "top": top}
+    zero_counts()
+    phase("lm_serve", arch=cfg.name, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
+          prefill_s=f"{serve['prefill_s']:.4f}",
+          decode_ms_per_step=f"{serve['decode_ms_per_step']:.3f}",
+          generated_tok_s=f"{serve['generated_tok_s']:.1f}",
+          decode_tok_s=f"{serve['decode_tok_s']:.1f}",
+          prefill_launches=serve["prefill_launches"], decode_launches=serve["decode_launches"],
+          prefill_busy=f"{serve['profile_prefill']['busy_share']:.4f}",
+          decode_busy=f"{serve['profile_decode_8_steps']['busy_share']:.4f}",
+          peak_mem_gb=f"{serve['peak_mem_gb']:.2f}", finite=serve["finite"],
+          in_vocab=serve["in_vocab"])
+    report["lm_serve"] = serve
+    others = {k: v for k, v in counts.items() if k != "flash_attention"}
+    if (serve["prefill_launches"], serve["decode_launches"]) != (cfg.n_layers, 0) \
+            or counts["flash_attention"] != cfg.n_layers or any(others.values()):
+        raise AssertionError(f"lm_serve launched {counts} (prefill {serve['prefill_launches']},"
+                             f" decode {serve['decode_launches']}); expected {cfg.n_layers}"
+                             " flash_attention launches, all in prefill")
+    if tokens.shape != (LM_BATCH, LM_GEN) or not serve["in_vocab"] or not serve["finite"]:
+        raise AssertionError(f"lm_serve: tokens {tuple(tokens.shape)}, in vocab "
+                             f"{serve['in_vocab']}, finite logits {serve['finite']}")
+
+    # 11. fp32: forward (kernel) against prefill + decode at generated positions
+    model.float()
+    zero_counts()
+    full = lm_api.forward(cfg, model, torch.cat([prompt, tokens[:, :-1]], dim=1))
+    full = full[:, LM_PROMPT - 1:]
+    cache = lm_api.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, torch.float32, dev)
+    logits, cache = lm_api.prefill(cfg, model, prompt, cache)
+    dec = [logits[:, 0]]
+    for i in range(LM_GEN - 1):
+        logits, cache = lm_api.decode_step(cfg, model, cache, tokens[:, i:i + 1], LM_PROMPT + i)
+        dec.append(logits[:, 0])
+    dec = torch.stack(dec, dim=1)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rel = float((dec - full).abs().max() / full.abs().max())
+    finite = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
+    phase("lm_consistency", dtype="float32", positions=LM_GEN, max_rel_dev=f"{rel:.3e}",
+          flash_launches=counts["flash_attention"], finite=finite)
+    report["lm_consistency"] = {"max_rel_dev": rel, "launches": counts, "finite": finite}
+    del model, cache, full, dec
+    if not finite or not rel < LM_CONSISTENCY_TOL or counts["flash_attention"] != 2 * cfg.n_layers:
+        raise AssertionError(f"lm_consistency: relative deviation {rel}, finite {finite}, "
+                             f"launches {counts}")
+
+    # 12. the smoke config on identical fp32 weights: card against CPU --------
+    scfg = get_smoke_config(LM_ARCH)
+    cpu_model = lm_api.init_params(scfg, torch.Generator().manual_seed(0), dtype=torch.float32)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    sprompt = torch.from_numpy(np.random.default_rng(1).integers(0, scfg.vocab, (LM_BATCH, 96)))
+    zero_counts()
+    card, _ = lm_api.prefill(scfg, card_model, sprompt.to(dev),
+                             lm_api.init_cache(scfg, LM_BATCH, 96, torch.float32, dev))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    cpu, _ = lm_api.prefill(scfg, cpu_model, sprompt,
+                            lm_api.init_cache(scfg, LM_BATCH, 96, torch.float32, "cpu"))
+    dev_abs = float((card.cpu() - cpu).abs().max())
+    close = bool(torch.allclose(card.cpu(), cpu, rtol=LM_CPU_TOL, atol=LM_CPU_TOL))
+    phase("lm_cpu_parity", arch=scfg.name, prompt=96, max_abs_dev=f"{dev_abs:.3e}",
+          allclose=close, flash_launches=counts["flash_attention"])
+    report["lm_cpu_parity"] = {"max_abs_dev": dev_abs, "allclose": close, "launches": counts}
+    if not close or counts["flash_attention"] != scfg.n_layers:
+        raise AssertionError(f"lm_cpu_parity: card vs CPU {dev_abs}, launches {counts}")
+
     # the kernel line: the shape each kernel's main path launched most
     line_shape = {"af_gemm": "fused_8x128x256x128", "fx_gemm": "fused_8x144x32x800_w16",
-                  "int8_gemm": "vta_tok_64x16x16"}
+                  "int8_gemm": "vta_tok_64x16x16", "flash_attention": "tinyllama_prefill_bf16"}
     replaces = {"af_gemm": "src/repro/kernels/af_gemm.py:68",
                 "fx_gemm": "src/repro/kernels/fx_gemm.py:53",
-                "int8_gemm": "src/repro/kernels/int8_gemm.py:39"}
+                "int8_gemm": "src/repro/kernels/int8_gemm.py:39",
+                "flash_attention": "src/repro/kernels/flash_attention.py:64"}
     kernels = []
     for kname in wrappers:
         tm = timings[f"{kname}:{line_shape[kname]}"]

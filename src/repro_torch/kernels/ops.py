@@ -1,7 +1,8 @@
 """Public wrappers around the hand-written kernels.
 
 The CUDA kernels mask ragged edges themselves, so nothing here pads (the
-Pallas wrappers pad to block multiples instead).
+Pallas wrappers pad to block multiples instead). ``flash_attention`` needs
+no more than its wrapper does, so this module re-exports the wrapper.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 from ..accel import numerics
 from ..accel.numerics import AdaptivFloatSpec
 from .af_gemm import af_gemm
+from .flash_attention import flash_attention as flash_attention
 from .fx_gemm import fx_gemm as _fx_gemm
 from .int8_gemm import int8_gemm as _int8_gemm
 

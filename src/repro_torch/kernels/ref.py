@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the hand-written kernels (the ``ref.py`` contract).
 
-af_gemm_ref, fx_gemm_ref and int8_gemm_ref.
+af_gemm_ref, fx_gemm_ref, int8_gemm_ref and flash_attention_ref.
 
 Each function computes what its kernel computes, in ordinary tensor ops: the
 CPU runs it in place of the kernel, and tests and ``chip_smoke.py`` hold the
@@ -75,3 +75,32 @@ def af_gemm_ref(
     wq = numerics.af_quantize(w, spec, exp_bias=_bias(exp_bias_w, w))
     y = xq @ wq.mT + b.unsqueeze(-2)
     return numerics.af_quantize(y, spec, exp_bias=_bias(exp_bias_o, y))
+
+
+#: the Pallas kernel's finite mask value (``repro/kernels/flash_attention.py``)
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """The flash_attention kernel's function in plain ops: q (B, Hq, S, D),
+    k and v (B, Hkv, Sk, D) -> (B, Hq, S, D) in q's dtype.
+
+    fp32 throughout; KV heads repeated for GQA (query head h reads KV head
+    h // (Hq // Hkv)); the causal mask ``q_idx >= k_idx`` aligned top-left;
+    masked scores at the finite NEG_INF and an empty denominator set to 1,
+    as in the Pallas kernel. Every key given is real (nothing is padded).
+    """
+    S, D = q.shape[2], q.shape[3]
+    Sk, group = k.shape[2], q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = q.float() @ kf.mT * (1.0 / D ** 0.5)
+    if causal:
+        qi = torch.arange(S, device=q.device)[:, None]
+        ki = torch.arange(Sk, device=q.device)[None, :]
+        s = s.masked_fill(qi < ki, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    den = p.sum(dim=-1, keepdim=True)
+    den = torch.where(den == 0, torch.ones_like(den), den)
+    return ((p @ vf) / den).to(q.dtype)

@@ -5,12 +5,16 @@ the file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Each kernel (``af_gemm``, ``fx_gemm``, ``int8_gemm``) must equal its plain
-PyTorch version bit for bit at the main path's shapes, count exactly its own
-launches and refuse inputs it does not take; FlexASR's and VTA's ILA
+Each GEMM kernel (``af_gemm``, ``fx_gemm``, ``int8_gemm``) must equal its
+plain PyTorch version bit for bit at the main path's shapes, count exactly
+its own launches and refuse inputs it does not take; FlexASR's and VTA's ILA
 simulators agree with their kernels (VT3, worst deviation 0.0), and the
 HLSCNN fused engine (``fx_gemm``) is bit-identical to the compiled ILA on
-the card and to the CPU.
+the card and to the CPU. ``flash_attention`` sums in another order than its
+plain version, so it is held to it within ``tests/test_kernels.py``'s
+tolerances (fp32 2e-5, bf16 3e-2: a few bf16 rounding steps of outputs near
+1); the LM serving path launches it once per layer in prefill and never in
+decode, and its prefill logits on the card match the CPU's.
 """
 import numpy as np
 import pytest
@@ -19,7 +23,9 @@ import torch
 from repro_torch.accel import flexasr as fa, hlscnn as hl, numerics, vta
 from repro_torch.core import ir
 from repro_torch.core.codegen import Executor
-from repro_torch.kernels import af_gemm as kaf, fx_gemm as kfx, int8_gemm as ki8, ref
+from repro_torch.kernels import (
+    af_gemm as kaf, flash_attention as kfa, fx_gemm as kfx, int8_gemm as ki8, ref,
+)
 
 SPEC = numerics.AdaptivFloatSpec(8, 3)
 SHAPES = [(16, 32, 64), (128, 128, 128), (100, 50, 200),
@@ -186,3 +192,87 @@ def test_hlscnn_fused_engine_bit_identical_on_card(bits, cuda_device):
             np.testing.assert_array_equal(g, r, err_msg=str(key))
     assert hl.TARGET.fused_runner(hl.conv2d_fragment(w, (14, 14, 8), wgt_bits=bits),
                                   cuda_device).lowering == "kernel"
+
+
+#: (B, Hq, Hkv, S, Sk, D, causal) of flash_attention, each in bf16 and fp32:
+#: TinyLlama prefill, a ragged prompt, the Whisper encoder and
+#: cross-attention, Granite/Qwen3, Zamba2, Gemma and MLA (v padded to 192)
+FLASH_SHAPES = [
+    (4, 32, 4, 1024, 1024, 64, True),
+    (4, 32, 4, 1000, 1000, 64, True),
+    (1, 8, 8, 1500, 1500, 64, False),
+    (1, 8, 8, 32, 1500, 64, False),
+    (1, 32, 8, 512, 512, 128, True),
+    (1, 32, 32, 512, 512, 112, True),
+    (1, 16, 16, 512, 512, 256, True),
+    (1, 16, 16, 256, 256, 192, True),
+]
+#: tests/test_kernels.py's tolerances: fp32 sums in another order, and a few
+#: bf16 steps of outputs near 1
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+#: bf16 also elementwise within 2e-5 + 2^-7 |want|: kernel and plain version
+#: round the same fp32 function to nearest even, so they differ by at most
+#: one bf16 step (2^-7 of |want| at most)
+BF16_STEP = 2.0 ** -7
+
+
+def _qkv(B, Hq, Hkv, S, Sk, D, dtype, dev, seed=4):
+    """(B, S, H, D) tensors, as the models hold them."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+            for shape in ((B, S, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Hq,Hkv,S,Sk,D,causal", FLASH_SHAPES)
+def test_flash_attention_close_to_plain(B, Hq, Hkv, S, Sk, D, causal, dtype, cuda_device):
+    q, k, v = (t.transpose(1, 2) for t in _qkv(B, Hq, Hkv, S, Sk, D, dtype, cuda_device))
+    before = kfa.flash_attention.launches
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    assert kfa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, Hq, S, D)
+    assert got.transpose(1, 2).is_contiguous()
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_ATOL[dtype], rtol=0)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-5, rtol=BF16_STEP)
+    # the same function on contiguous (B, H, S, D) copies
+    again = kfa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_bad_inputs(cuda_device):
+    q, k, v = (t.transpose(1, 2) for t in _qkv(1, 4, 2, 8, 8, 16, torch.float32, cuda_device))
+    before = kfa.flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 2, 8, 320), device=cuda_device)
+        kfa.flash_attention(big, big, big)
+    with pytest.raises(ValueError):
+        kfa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="unit head-dim stride"):
+        kfa.flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
+    with pytest.raises(TypeError):
+        kfa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        kfa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        kfa.flash_attention(q, k[:, :1], v)
+    assert kfa.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_lm_generate_launches_kernel_once_per_layer_in_prefill(cuda_device):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import api
+
+    cfg = get_smoke_config("tinyllama_1_1b")
+    model = api.init_params(cfg, torch.Generator(device="cpu").manual_seed(0),
+                            dtype=torch.float32).to(cuda_device)
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, (2, 40)))
+    stats = {}
+    tokens = generate(cfg, model, prompt.to(cuda_device), 6, stats)
+    assert tokens.shape == (2, 6) and stats["finite"]
+    assert (stats["prefill_launches"], stats["decode_launches"]) == (cfg.n_layers, 0)

@@ -40,9 +40,20 @@ SLICE_MODULES = [
     "repro_torch.kernels.af_gemm",
     "repro_torch.kernels.fx_gemm",
     "repro_torch.kernels.int8_gemm",
+    "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.ops",
     "repro_torch.launch.table4",
-]
+    "repro_torch.launch.serve",
+    "repro_torch.models.config",
+    "repro_torch.models.layers",
+    "repro_torch.models.ssm",
+    "repro_torch.models.lm",
+    "repro_torch.models.whisper",
+    "repro_torch.models.api",
+    "repro_torch.configs",
+] + [f"repro_torch.configs.{a}" for a in (
+    "pixtral_12b", "deepseek_v3_671b", "qwen3_moe_30b_a3b", "zamba2_7b", "falcon_mamba_7b",
+    "gemma_7b", "granite_8b", "smollm_360m", "tinyllama_1_1b", "whisper_base")]
 
 _FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax\b|jaxlib\b|repro(?:\.|\s|$))")
 
@@ -77,6 +88,13 @@ def test_no_jax_or_reference_imports_in_sources():
     assert not offenders, offenders
 
 
+def test_port_never_calls_the_library_attention():
+    """scaled_dot_product_attention is chip_smoke's timed yardstick only."""
+    offenders = [str(f.relative_to(ROOT)) for f in sorted(PORT.rglob("*.py"))
+                 if "scaled_dot_product_attention" in f.read_text()]
+    assert not offenders, offenders
+
+
 def test_executor_without_device_raises_when_cuda_absent(monkeypatch):
     from repro_torch.core.codegen import Executor
 
@@ -90,11 +108,15 @@ def test_executor_without_device_raises_when_cuda_absent(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["interpret", "init_state", "setup_state", "teacher",
                                    "hlscnn_init_state", "vta_init_state",
-                                   "vecunit_init_state", "table4_row"])
+                                   "vecunit_init_state", "table4_row", "lm_init_cache",
+                                   "whisper_init_cache", "params_from_numpy", "train_batch",
+                                   "serve"])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     from repro_torch.accel import flexasr as fa, hlscnn, vecunit, vta
     from repro_torch.core import apps, cosim, ir
-    from repro_torch.launch import table4
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve, table4
+    from repro_torch.models import api
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = ir.Var("x", (2, 3))
@@ -107,6 +129,13 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
         "vta_init_state": lambda: vta.vta.init_state(),
         "vecunit_init_state": lambda: vecunit.vecunit.init_state(),
         "table4_row": lambda: table4.acc_row(table4.APPS["resnet20"], n_eval=1, steps=1),
+        "lm_init_cache": lambda: api.init_cache(get_smoke_config("tinyllama_1_1b"), 1, 4),
+        "whisper_init_cache": lambda: api.init_cache(get_smoke_config("whisper_base"), 1, 4),
+        "params_from_numpy": lambda: api.params_from_numpy(
+            get_smoke_config("granite_8b"), {"final_norm": np.ones(4, np.float32)}),
+        "train_batch": lambda: api.make_train_batch(get_smoke_config("tinyllama_1_1b"), 1, 4,
+                                                    np.random.default_rng(0)),
+        "serve": lambda: serve.main(["--arch", "tinyllama-1.1b", "--smoke"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
