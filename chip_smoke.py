@@ -7,12 +7,16 @@ without one). Phases, one line each:
 
 1. device    the card's name and power limit (nvidia-smi); TF32 is off
 2. build     compile every CUDA kernel of the path from src/repro_torch/csrc
-             (one nvcc per source, all started together)
+             (one nvcc per source, all started together); the registers
+             and spill bytes ptxas reports for flash_attention's wgmma
+             design and the HGMMA instructions in its SASS (gate: > 0)
 3. kernels   each kernel against its plain PyTorch version on the card, at the
              shapes the main path gives it (``torch.equal`` for the three
              GEMMs; flash_attention at the eight shapes of the LM configs,
-             each in fp32 within 2e-5 and in bf16 within one bf16 step of
-             the plain output and within 3e-2), and the
+             each in fp32 (the fma design) within 2e-5 and in bf16 (the
+             wgmma design) within one bf16 step of the plain output and
+             within 3e-2, plus TinyLlama's shape in bf16 with q scaled by 8,
+             which spreads P far below 1), and the
              FlexASR and VTA VT3 checks (ILA simulator vs kernel, worst
              deviation 0.0)
 4. resmlp    the paper's Table-4 ResMLP row on FlexASR at the repository's
@@ -41,7 +45,11 @@ without one). Phases, one line each:
 8. timing    kernel, plain version, bound and (where one exists) the PyTorch
              library call at the main path's shapes (CUDA events around
              CUDA-graph replays, after a warm-up); flash_attention at the
-             TinyLlama prefill shape, against scaled_dot_product_attention
+             TinyLlama prefill and Gemma shapes in bf16 (wgmma) and fp32
+             (fma) and at the Granite/Qwen3 shape in bf16, each with the
+             bound with P.V at the fp32 rate, the bound with P split into
+             three bf16 terms (the least time for bf16 inputs, which the
+             kernel line gives) and scaled_dot_product_attention
 9. profile   the device's busy share over one fused-engine minibatch of the
              ResMLP row and of the ResNet-20 row (torch.profiler)
 10. lm_serve TinyLlama-1.1B at full width (22 layers, d_model 2048, 32/4
@@ -50,12 +58,13 @@ without one). Phases, one line each:
              and 32 generated tokens after a warm-up; prefill seconds, decode
              ms/step, tokens/s, and the busy share of a prefill and of 8
              decode steps (torch.profiler). Gates: 22 flash_attention launches
-             in prefill and 0 in decode, ids within the vocabulary, finite
-             logits
+             in prefill, all of the wgmma design, and 0 in decode, ids
+             within the vocabulary, finite logits
 11. lm_consistency
              the same weights cast to fp32: ``forward`` over prompt +
-             generated tokens (the kernel) against prefill + decode (kernel
-             prefill, plain decode) at the generated positions; max relative
+             generated tokens (the kernel's fma design) against prefill +
+             decode (kernel prefill, plain decode) at the generated
+             positions; max relative
              deviation below 2e-2 (tests/test_models.py's bound)
 12. lm_cpu_parity
              the TinyLlama smoke config on identical seeded fp32 weights on
@@ -63,13 +72,15 @@ without one). Phases, one line each:
              prefill logits within rtol = atol = 1e-4
 
 Every count of kernel launches is set to 0 just before a path runs and read
-just after it. Then one JSON line per kernel (``{"kernels": [...]}``), the
+just after it. Then one JSON line with an entry per kernel and per design of
+flash_attention (``{"kernels": [...]}``), the
 card's nvidia-smi line and, last, the result line ``{"ok": true, "device":
 {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -128,7 +139,7 @@ def main() -> int:
     from repro_torch.core import apps, cosim, ir
     from repro_torch.core.codegen import Executor
     from repro_torch.core.compile import compile_program
-    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import build, flash_attention as kfa, ref
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels.af_gemm import af_gemm
     from repro_torch.kernels.flash_attention import flash_attention
@@ -142,15 +153,21 @@ def main() -> int:
     dev = devmod.resolve("cuda")
     wrappers = {"af_gemm": af_gemm, "fx_gemm": fx_gemm, "int8_gemm": int8_gemm,
                 "flash_attention": flash_attention}
-    #: per kernel, launches summed over every main-path run (read per path)
-    path_launches = {name: 0 for name in wrappers}
+    designs = sorted(flash_attention.launches_by_design)   # fma, wgmma
+    #: per kernel (flash_attention in all and per design, "flash_attention:
+    #: wgmma"), launches summed over every main-path run (read per path)
+    path_launches = {name: 0 for name in list(wrappers) + [f"flash_attention:{d}"
+                                                           for d in designs]}
 
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
+        kfa.reset_launches()
 
     def read_counts():
         counts = {name: w.launches for name, w in wrappers.items()}
+        counts.update({f"flash_attention:{d}": n
+                       for d, n in flash_attention.launches_by_design.items()})
         for name, n in counts.items():
             path_launches[name] += n
         return counts
@@ -170,11 +187,30 @@ def main() -> int:
     secs = build.build()
     regs = {name: [ln.strip() for ln in text.splitlines() if "registers" in ln]
             for name, text in build.PTXAS_REPORT.items()}
+    # the wgmma design: per instantiation (padded head dim), ptxas's registers
+    # and spill bytes, and the tensor-core instructions in its SASS
+    sm90 = build.PTXAS_REPORT.get("flash_attention_sm90", "")
+    sm90_dp = [int(d) for d in re.findall(
+        r"Compiling entry function '\S*flash_wgmma_kernelILi(\d+)E", sm90)]
+    serialized = [int(d) for d in re.findall(r"serialized[^\n]*flash_wgmma_kernelILi(\d+)E", sm90)]
+    sm90_regs = [int(r) for r in re.findall(r"Used (\d+) registers", sm90)]
+    sm90_spill = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", sm90)]
+    hgmma = sum("HGMMA" in ln for ln in build.sass("flash_attention_sm90").splitlines())
+    wgmma_build = {"head_dims": sm90_dp, "registers": sm90_regs, "spill_bytes": sm90_spill,
+                   "wgmma_serialized": serialized, "hgmma": hgmma}
     phase("build", **{k: f"{v:.1f}s" for k, v in secs.items()},
           ptxas=";".join(f"{k}:{v[0].replace(' ', '_')}" for k, v in regs.items() if v)
-          or "cached")
+          or "cached",
+          wgmma_dp="/".join(map(str, sm90_dp)) or "cached",
+          wgmma_regs="/".join(map(str, sm90_regs)) or "cached",
+          wgmma_spill_bytes="/".join(map(str, sm90_spill)) or "cached",
+          wgmma_serialized="/".join(map(str, serialized)) or "none", hgmma=hgmma)
     report["build_s"] = secs
     report["ptxas"] = build.PTXAS_REPORT
+    report["wgmma_build"] = wgmma_build
+    if hgmma <= 0:
+        raise AssertionError("the wgmma design's SASS holds no HGMMA instruction")
 
     # 3. kernels against their plain versions -----------------------------
     rng = np.random.default_rng(1)
@@ -286,11 +322,19 @@ def main() -> int:
                for shape in ((B, S, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
         for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
             flash_cases[f"{name}_{tag}"] = tuple(a.to(dtype).transpose(1, 2) for a in qkv), causal
-    flash_err = {}
+        if name == "tinyllama_prefill":
+            # q scaled by 8: most of P lies far below 1, where mid and lo count
+            qkv[0] = qkv[0] * 8
+            flash_cases["tinyllama_spread_bf16"] = (
+                tuple(a.bfloat16().transpose(1, 2) for a in qkv), causal)
+    flash_err, flash_design = {}, {}
     for name, (args, causal) in flash_cases.items():
+        before = dict(flash_attention.launches_by_design)
         got = flash_attention(*args, causal=causal).float()
         want = ref.flash_attention_ref(*args, causal=causal).float()
         torch.cuda.synchronize()
+        flash_design[name] = next(d for d, n in flash_attention.launches_by_design.items()
+                                  if n > before[d])
         err = (got - want).abs()
         flash_err[name] = float(err.max())
         limit = FLASH_ATOL[str(args[0].dtype).removeprefix("torch.")]
@@ -298,13 +342,18 @@ def main() -> int:
             limit = (FLASH_ATOL["float32"] + FLASH_BF16_STEP * want.abs()).clamp(max=limit)
         if not bool((err <= limit).all()):
             mismatched.append(f"flash_attention:{name}")
-    worst_kernel["flash_attention"] = max(flash_err.values())
+    if any(flash_design[n] != kfa.DESIGNS[a[0].dtype] for n, (a, _) in flash_cases.items()):
+        mismatched.append(f"flash_attention designs {flash_design}")
+    for d in designs:
+        worst_kernel[f"flash_attention:{d}"] = max(
+            (e for n, e in flash_err.items() if flash_design[n] == d), default=0.0)
     report["flash_attention_err"] = flash_err
+    report["flash_attention_design"] = flash_design
     _, vt3_fasr = fa._vt3_linear(device=dev)
     _, vt3_vta = vta._vt3_gemm(device=dev)
     n_checked = sum(len(c) for c in checks.values()) + len(flash_cases)
     phase("kernels", shapes=n_checked, within_tolerance=n_checked - len(mismatched),
-          **{f"{k}_max_abs_err": v for k, v in worst_kernel.items()},
+          **{f"{k.replace(':', '_')}_max_abs_err": v for k, v in worst_kernel.items()},
           vt3_flexasr=vt3_fasr, vt3_vta=vt3_vta)
     report["kernel_mismatches"] = mismatched
     report["vt3"] = {"flexasr": vt3_fasr, "vta": vt3_vta}
@@ -549,19 +598,32 @@ def main() -> int:
         return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else "operations")
 
     def flash_split_bound(args, causal):
-        """The bound of the wgmma design for bf16 inputs: Q.K^T once and P.V
-        with P split into three bf16 terms (exact), all on the bf16 tensor
-        cores, or the bytes, whichever is longer."""
+        """The bound of the wgmma design: Q.K^T once and P.V with P split
+        into three bf16 terms (exact), all at the bf16 tensor-core rate, or
+        the bytes, whichever is longer (for fp32 inputs, what the same
+        products would take if they were exact in bf16, as a yardstick)."""
         q, k, _ = args
         flops = 2 * flash_pairs(q, k, causal) * q.shape[3]
         return max(4 * flops / PEAK_BF16_FLOPS, nbytes(args, q) / PEAK_BYTES) * 1e3
 
-    for n in ("tinyllama_prefill_bf16", "tinyllama_prefill_fp32"):
+    def flash_least_bound(args, causal):
+        """The least time for the function: for bf16 inputs the split bound,
+        since P's three bf16 terms make every product exact on the tensor
+        cores; for fp32 inputs flash_bound."""
+        if args[0].dtype != torch.bfloat16:
+            return flash_bound(args, causal)
+        t_bytes = nbytes(args, args[0]) / PEAK_BYTES * 1e3
+        t = flash_split_bound(args, causal)
+        return t, ("bytes" if t_bytes >= t else "operations")
+
+    flash_timed = ("tinyllama_prefill_bf16", "granite_qwen3_bf16", "tinyllama_prefill_fp32",
+                   "gemma_bf16", "gemma_fp32")
+    for n in flash_timed:
         args, causal = flash_cases[n]
         timed.append(("flash_attention", n,
                       lambda a=args, c=causal: flash_attention(*a, causal=c),
                       lambda a=args, c=causal: ref.flash_attention_ref(*a, causal=c),
-                      flash_bound(args, causal),
+                      flash_least_bound(args, causal),
                       lambda a=args, c=causal: F.scaled_dot_product_attention(
                           *a, is_causal=c, enable_gqa=True)))
     timings = {}
@@ -573,10 +635,15 @@ def main() -> int:
             "ms": min(runs[1:3]), "plain_ms": min(runs[0], runs[3]), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": graph_ms(lib) if lib is not None else None,
             "graph_runs_ms": runs, "call_ms": calls[0], "plain_call_ms": calls[1]}
-    split_ms = flash_split_bound(*flash_cases["tinyllama_prefill_bf16"])
-    timings["flash_attention:tinyllama_prefill_bf16"]["split_bound_ms"] = split_ms
+    for n in flash_timed:
+        tm = timings[f"flash_attention:{n}"]
+        tm["split_bound_ms"] = flash_split_bound(*flash_cases[n])
+        tm["flash_bound_ms"] = flash_bound(*flash_cases[n])[0]
+        tm["design"] = kfa.DESIGNS[flash_cases[n][0][0].dtype]
     zero_counts()  # timing launches are not main-path launches
-    phase("timing", flash_attention_split_bound_ms=f"{split_ms:.5f}", **{f"{k}_ms": f"{v['ms']:.5f}/{v['plain_ms']:.5f}/{v['bound_ms']:.5f}"
+    phase("timing", **{f"{k}_ms": f"{v['ms']:.5f}/{v['plain_ms']:.5f}/{v['bound_ms']:.5f}"
+                       + (f"/fp32pv={v['flash_bound_ms']:.5f}/split={v['split_bound_ms']:.5f}"
+                          if "split_bound_ms" in v else "")
                        + (f"/lib={v['library_ms']:.5f}" if v["library_ms"] is not None else "")
                        for k, v in timings.items()})
     report["timing"] = timings
@@ -652,17 +719,19 @@ def main() -> int:
           generated_tok_s=f"{serve['generated_tok_s']:.1f}",
           decode_tok_s=f"{serve['decode_tok_s']:.1f}",
           prefill_launches=serve["prefill_launches"], decode_launches=serve["decode_launches"],
+          prefill_wgmma_launches=counts["flash_attention:wgmma"],
           prefill_busy=f"{serve['profile_prefill']['busy_share']:.4f}",
           decode_busy=f"{serve['profile_decode_8_steps']['busy_share']:.4f}",
           peak_mem_gb=f"{serve['peak_mem_gb']:.2f}", finite=serve["finite"],
           in_vocab=serve["in_vocab"])
     report["lm_serve"] = serve
-    others = {k: v for k, v in counts.items() if k != "flash_attention"}
+    others = {k: v for k, v in counts.items() if not k.startswith("flash_attention")}
     if (serve["prefill_launches"], serve["decode_launches"]) != (cfg.n_layers, 0) \
-            or counts["flash_attention"] != cfg.n_layers or any(others.values()):
+            or counts["flash_attention"] != cfg.n_layers \
+            or counts["flash_attention:wgmma"] != cfg.n_layers or any(others.values()):
         raise AssertionError(f"lm_serve launched {counts} (prefill {serve['prefill_launches']},"
                              f" decode {serve['decode_launches']}); expected {cfg.n_layers}"
-                             " flash_attention launches, all in prefill")
+                             " flash_attention launches of the wgmma design, all in prefill")
     if tokens.shape != (LM_BATCH, LM_GEN) or not serve["in_vocab"] or not serve["finite"]:
         raise AssertionError(f"lm_serve: tokens {tuple(tokens.shape)}, in vocab "
                              f"{serve['in_vocab']}, finite logits {serve['finite']}")
@@ -687,7 +756,8 @@ def main() -> int:
           flash_launches=counts["flash_attention"], finite=finite)
     report["lm_consistency"] = {"max_rel_dev": rel, "launches": counts, "finite": finite}
     del model, cache, full, dec
-    if not finite or not rel < LM_CONSISTENCY_TOL or counts["flash_attention"] != 2 * cfg.n_layers:
+    if not finite or not rel < LM_CONSISTENCY_TOL \
+            or counts["flash_attention:fma"] != 2 * cfg.n_layers:
         raise AssertionError(f"lm_consistency: relative deviation {rel}, finite {finite}, "
                              f"launches {counts}")
 
@@ -711,33 +781,42 @@ def main() -> int:
     if not close or counts["flash_attention"] != scfg.n_layers:
         raise AssertionError(f"lm_cpu_parity: card vs CPU {dev_abs}, launches {counts}")
 
-    # the kernel line: the shape each kernel's main path launched most
-    line_shape = {"af_gemm": "fused_8x128x256x128", "fx_gemm": "fused_8x144x32x800_w16",
-                  "int8_gemm": "vta_tok_64x16x16", "flash_attention": "tinyllama_prefill_bf16"}
-    replaces = {"af_gemm": "src/repro/kernels/af_gemm.py:68",
-                "fx_gemm": "src/repro/kernels/fx_gemm.py:53",
-                "int8_gemm": "src/repro/kernels/int8_gemm.py:39",
-                "flash_attention": "src/repro/kernels/flash_attention.py:64"}
+    # the kernel line, one entry per CUDA source: the shape each one's main
+    # path launched most; flash_attention's two designs take bf16 and fp32
+    line = {  # name: (launch count, timing, source, error key, TPU kernel)
+        "af_gemm": ("af_gemm", "af_gemm:fused_8x128x256x128", "af_gemm", "af_gemm",
+                    "af_gemm.py:68"),
+        "fx_gemm": ("fx_gemm", "fx_gemm:fused_8x144x32x800_w16", "fx_gemm", "fx_gemm",
+                    "fx_gemm.py:53"),
+        "int8_gemm": ("int8_gemm", "int8_gemm:vta_tok_64x16x16", "int8_gemm", "int8_gemm",
+                      "int8_gemm.py:39"),
+        "flash_attention": ("flash_attention:wgmma", "flash_attention:tinyllama_prefill_bf16",
+                            "flash_attention_sm90", "flash_attention:wgmma",
+                            "flash_attention.py:64"),
+        "flash_attention_fma": ("flash_attention:fma", "flash_attention:tinyllama_prefill_fp32",
+                                "flash_attention", "flash_attention:fma",
+                                "flash_attention.py:64"),
+    }
     kernels = []
-    for kname in wrappers:
-        tm = timings[f"{kname}:{line_shape[kname]}"]
+    for kname, (count, timing, source, err_key, tpu) in line.items():
+        tm = timings[timing]
         kernels.append({
             "name": kname,
             "route": "cuda",
-            "source": f"src/repro_torch/csrc/{kname}.cu",
-            "replaces": replaces[kname],
-            "launches": path_launches[kname],
-            "max_abs_err": worst_kernel[kname],
+            "source": f"src/repro_torch/csrc/{source}.cu",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": path_launches[count],
+            "max_abs_err": worst_kernel[err_key],
             "ms": tm["ms"],
             "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
         })
-        if path_launches[kname] <= 0:
+        if path_launches[count] <= 0:
             raise AssertionError(f"{kname} was never launched on the main path")
     report["kernels"] = kernels
-    report["kernel_line_shapes"] = line_shape
+    report["kernel_line"] = {k: v[1] for k, v in line.items()}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))

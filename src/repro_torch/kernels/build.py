@@ -28,6 +28,7 @@ SOURCES: Dict[str, str] = {
     "fx_gemm": "fx_gemm.cu",
     "int8_gemm": "int8_gemm.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_sm90": "flash_attention_sm90.cu",
 }
 
 NVCC_FLAGS = [
@@ -47,6 +48,14 @@ def nvcc() -> str:
         return found
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     return str(Path(home) / "bin" / "nvcc")
+
+
+def sass(name: str) -> str:
+    """The SASS of kernel ``name``'s built library (``cuobjdump -sass``,
+    beside ``nvcc``), to show which instructions the compiler emitted."""
+    tool = Path(nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(lib_path(name))], capture_output=True,
+                          text=True, check=True).stdout
 
 
 def lib_path(name: str) -> Path:

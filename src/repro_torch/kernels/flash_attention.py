@@ -1,9 +1,17 @@
-"""FlashAttention with GQA and causal masking: the CUDA kernel's wrapper.
+"""FlashAttention with GQA and causal masking: the CUDA kernels' wrapper.
 
-Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``. The
-kernel is ``csrc/flash_attention.cu`` (its header says what bounds it and the
-later design); its plain PyTorch version is
-:func:`repro_torch.kernels.ref.flash_attention_ref`.
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py`` with two
+designs, chosen by a fixed rule on the dtype (:data:`DESIGNS`):
+
+* ``"wgmma"`` for bfloat16 (``csrc/flash_attention_sm90.cu``): Q.K^T and
+  P.V on Hopper's tensor cores, P split into three bf16 terms whose sum is
+  the fp32 P exactly, K/V tiles staged by TMA;
+* ``"fma"`` for float32 (``csrc/flash_attention.cu``): every product an
+  fp32 FMA on the CUDA cores. fp32 products have no exact tensor-core route
+  without TF32, which the port never uses.
+
+Each source's header says what bounds it. Both compute the plain PyTorch
+version :func:`repro_torch.kernels.ref.flash_attention_ref`.
 
 The wrapper takes the Pallas kernel's layout, q (B, Hq, S, D) and k, v
 (B, Hkv, Sk, D), at any strides with a unit head-dim stride: a model's
@@ -11,38 +19,53 @@ The wrapper takes the Pallas kernel's layout, q (B, Hq, S, D) and k, v
 The output is laid out (B, S, Hq, D) in memory and returned as a
 (B, Hq, S, D) view, so ``out.transpose(1, 2)`` is contiguous again. Unlike
 the Pallas wrapper nothing is padded: ragged S and Sk are masked in the
-kernel, and padded keys never get weight.
+kernels, and padded keys never get weight. The wgmma design reads its
+operands through TMA tensor maps, which need more of them
+(:func:`wgmma_refusal`); an input it refuses raises, and is never handed to
+the other design or to the plain version.
 
-On a CUDA tensor the wrapper launches the kernel on the current stream or
+On a CUDA tensor the wrapper launches a kernel on the current stream or
 raises; on a CPU tensor it runs the plain version.
 ``flash_attention.launches`` counts kernel launches (never the plain
-version's calls).
+version's calls), and ``flash_attention.launches_by_design`` counts them per
+design.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from . import build, ref
 
-#: the largest head dim the kernel takes (Gemma's 256)
+#: the largest head dim either design takes (Gemma's 256)
 MAX_HEAD_DIM = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-)
+#: the design each dtype takes on the card
+DESIGNS = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+_FMA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_STRIDES = [ctypes.c_longlong] * 12
+_TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+#: design -> (kernel name in build.SOURCES, C entry point, its argument types)
+_ENTRY = {
+    "fma": ("flash_attention", "flash_attention",
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + _STRIDES + _TAIL),
+    "wgmma": ("flash_attention_sm90", "flash_attention_sm90",
+              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + _STRIDES + _TAIL),
+}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
-    if lib.flash_attention_launch.argtypes is None:
-        lib.flash_attention_launch.argtypes = _ARGTYPES
-        lib.flash_attention_launch.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+def _lib(design: str):
+    """(launch function, error-string function) of a design's library."""
+    kernel, prefix, argtypes = _ENTRY[design]
+    lib = build.load(kernel)
+    launch, errstr = getattr(lib, f"{prefix}_launch"), getattr(lib, f"{prefix}_error_string")
+    if launch.argtypes is None:
+        launch.argtypes = argtypes
+        launch.restype = ctypes.c_int
+        errstr.argtypes = [ctypes.c_int]
+        errstr.restype = ctypes.c_char_p
+    return launch, errstr
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
@@ -57,51 +80,90 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
                          f"got strides {t.stride()}")
 
 
+def wgmma_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Optional[str]:
+    """Why the wgmma design cannot take these (B, H, S, D) operands, or None.
+
+    Its preconditions: head dim D in 1..MAX_HEAD_DIM; for each of q, k and v
+    a unit head-dim stride, a 16-byte aligned start (storage offset
+    included) and (batch, head, sequence) strides that are multiples of 16
+    bytes, except along a dimension of extent 1, which is never stepped.
+    A TMA tensor map cannot be built otherwise.
+    """
+    D = q.shape[-1]
+    if not 1 <= D <= MAX_HEAD_DIM:
+        return f"head dim {D} outside 1..{MAX_HEAD_DIM}"
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            return f"{name} needs a unit head-dim stride, got strides {t.stride()}"
+        if t.data_ptr() % 16:
+            return (f"{name} does not start on 16 bytes (storage offset "
+                    f"{t.storage_offset()} elements)")
+        for dim in range(3):
+            if t.shape[dim] > 1 and t.stride(dim) * t.element_size() % 16:
+                return (f"{name}'s stride {t.stride(dim)} along dim {dim} is not a multiple "
+                        "of 16 bytes")
+    return None
+
+
 def _strides(t: torch.Tensor):
     """(batch, sequence, head) element strides of a (B, H, S, D) view."""
     return [t.stride(0), t.stride(2), t.stride(1)]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
     """(B, Hq, S, D) x (B, Hkv, Sk, D) -> (B, Hq, S, D) in q's dtype.
 
     Query head h reads KV head ``h // (Hq // Hkv)``; ``causal`` masks
-    ``q_idx < k_idx`` (aligned top-left, as the Pallas kernel).
+    ``q_idx < k_idx`` (aligned top-left, as the Pallas kernel); the scores
+    are scaled by ``scale`` (default ``1 / sqrt(D)``, the Pallas kernel's).
     """
     B, Hq, S, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    scale = 1.0 / D ** 0.5 if scale is None else float(scale)
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
     if k.shape != (B, Hkv, Sk, D) or v.shape != k.shape or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if q.dtype not in _DTYPES:
+    design = DESIGNS.get(q.dtype)
+    if design is None:
         raise TypeError(f"flash_attention: q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q)
     if Sk == 0:
         raise ValueError("flash_attention: no keys (Sk = 0)")
+    if design == "wgmma":
+        reason = wgmma_refusal(q, k, v)
+        if reason is not None:
+            raise ValueError(f"flash_attention: the wgmma design refuses bf16 input: {reason}")
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() > 0:
-        lib = _lib()
+        launch, errstr = _lib(design)
+        dtype = [_FMA_DTYPES[q.dtype]] if design == "fma" else []
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], B, Hq, Hkv, S, Sk, D,
-                *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-                1.0 / D ** 0.5, int(causal), stream)
+            err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                         *dtype, B, Hq, Hkv, S, Sk, D,
+                         *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+                         scale, int(causal), stream)
         if err != 0:
-            msg = lib.flash_attention_error_string(err).decode()
-            raise RuntimeError(f"flash_attention launch failed: {msg} (cudaError {err})")
+            raise RuntimeError(f"flash_attention ({design} design) launch failed: "
+                               f"{errstr(err).decode()} (cudaError {err})")
         flash_attention.launches += 1
+        flash_attention.launches_by_design[design] += 1
     return out
 
 
-#: kernel launches since the counter was last set to 0
-flash_attention.launches = 0
+def reset_launches() -> None:
+    """Set the total and the per-design launch counts to 0."""
+    flash_attention.launches = 0
+    flash_attention.launches_by_design = dict.fromkeys(sorted(set(DESIGNS.values())), 0)
+
+
+#: kernel launches since the counter was last set to 0, in all and per design
+reset_launches()

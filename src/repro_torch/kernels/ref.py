@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels (the ``ref.py`` contract).
 
-af_gemm_ref, fx_gemm_ref, int8_gemm_ref and flash_attention_ref.
+af_gemm_ref, fx_gemm_ref, int8_gemm_ref and flash_attention_ref (with
+bf16x3_split, the wgmma design's split of P).
 
 Each function computes what its kernel computes, in ordinary tensor ops: the
 CPU runs it in place of the kernel, and tests and ``chip_smoke.py`` hold the
@@ -12,6 +13,8 @@ exp_bias_o)``; the JAX reference ``repro.kernels.ref.af_gemm_ref`` takes the
 weight bias first, so tests map the two by keyword.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -81,21 +84,42 @@ def af_gemm_ref(
 NEG_INF = -1e30
 
 
+def bf16x3_split(p: torch.Tensor):
+    """The wgmma design's split of fp32 ``p`` into three bf16 terms, each
+    returned as an fp32 tensor holding bf16 values: ``hi = bf16(p)``,
+    ``mid = bf16(p - hi)``, ``lo = bf16(p - hi - mid)`` (round to nearest
+    even, the differences exact in fp32). ``hi + mid + lo == p`` exactly
+    wherever p's lowest significant bit is on bf16's grid, which holds for
+    every p >= 2^-110 (24 bits in three pieces of 8); below, lo is rounded
+    to bf16's subnormal grid and the sum is within 2^-134 of p."""
+    p = p.float()
+    hi = p.bfloat16().float()
+    mid = (p - hi).bfloat16().float()
+    lo = (p - hi - mid).bfloat16().float()
+    return hi, mid, lo
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, scale: Optional[float] = None,
+                        pv_split: bool = False) -> torch.Tensor:
     """The flash_attention kernel's function in plain ops: q (B, Hq, S, D),
     k and v (B, Hkv, Sk, D) -> (B, Hq, S, D) in q's dtype.
 
     fp32 throughout; KV heads repeated for GQA (query head h reads KV head
-    h // (Hq // Hkv)); the causal mask ``q_idx >= k_idx`` aligned top-left;
-    masked scores at the finite NEG_INF and an empty denominator set to 1,
-    as in the Pallas kernel. Every key given is real (nothing is padded).
+    h // (Hq // Hkv)); scores scaled by ``scale`` (default 1/sqrt(D)); the
+    causal mask ``q_idx >= k_idx`` aligned top-left; masked scores at the
+    finite NEG_INF and an empty denominator set to 1, as in the Pallas
+    kernel. Every key given is real (nothing is padded). ``pv_split`` takes
+    P.V as the wgmma design does, the sum of the products of the three bf16
+    terms of P (:func:`bf16x3_split`) with V: the same function, summed in
+    another order.
     """
     S, D = q.shape[2], q.shape[3]
     Sk, group = k.shape[2], q.shape[1] // k.shape[1]
+    scale = 1.0 / D ** 0.5 if scale is None else scale
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
-    s = q.float() @ kf.mT * (1.0 / D ** 0.5)
+    s = q.float() @ kf.mT * scale
     if causal:
         qi = torch.arange(S, device=q.device)[:, None]
         ki = torch.arange(Sk, device=q.device)[None, :]
@@ -103,4 +127,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     den = p.sum(dim=-1, keepdim=True)
     den = torch.where(den == 0, torch.ones_like(den), den)
-    return ((p @ vf) / den).to(q.dtype)
+    if pv_split:
+        hi, mid, lo = bf16x3_split(p)
+        pv = hi @ vf + mid @ vf + lo @ vf
+    else:
+        pv = p @ vf
+    return (pv / den).to(q.dtype)

@@ -134,14 +134,21 @@ def _sdpa_dense(q, k, v, causal, q_offset=0):
 def sdpa(q, k, v, causal=True):
     """Attention through the flash_attention kernel, (B, S, H, Dh) layout.
 
-    q/k share Dh; v may have a smaller head dim (MLA: qk 192, v 128): it is
-    zero-padded to q's, and the zero output columns are sliced off (exact).
+    q/k share Dh; v may have a smaller head dim (MLA: qk 192, v 128). All
+    three are zero-padded to the multiple of 8 at or above Dh, so that a row
+    of a bf16 operand fills whole 16-byte units, as the kernel's wgmma design
+    needs (SmolLM's smoke config has Dh 20): the zero columns add exact
+    zeros to every score, the scale stays 1/sqrt(Dh), and the zero output
+    columns are sliced off (exact).
     """
-    dv = v.shape[-1]
-    if dv < q.shape[-1]:
-        v = F.pad(v, (0, q.shape[-1] - dv))
+    d, dv = q.shape[-1], v.shape[-1]
+    dp = -(-d // 8) * 8
+    if dp != d:
+        q, k = F.pad(q, (0, dp - d)), F.pad(k, (0, dp - d))
+    if dv != dp:
+        v = F.pad(v, (0, dp - dv))
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=causal).transpose(1, 2)
+                              causal=causal, scale=1.0 / d ** 0.5).transpose(1, 2)
     return out[..., :dv]
 
 

@@ -13,8 +13,10 @@ HLSCNN fused engine (``fx_gemm``) is bit-identical to the compiled ILA on
 the card and to the CPU. ``flash_attention`` sums in another order than its
 plain version, so it is held to it within ``tests/test_kernels.py``'s
 tolerances (fp32 2e-5, bf16 3e-2: a few bf16 rounding steps of outputs near
-1); the LM serving path launches it once per layer in prefill and never in
-decode, and its prefill logits on the card match the CPU's.
+1) and, in bf16, within one bf16 step; bf16 goes to the wgmma design and
+fp32 to the fma design, and a bf16 input the wgmma design cannot take
+raises; the LM serving path launches it once per layer in prefill and
+never in decode.
 """
 import numpy as np
 import pytest
@@ -196,7 +198,11 @@ def test_hlscnn_fused_engine_bit_identical_on_card(bits, cuda_device):
 
 #: (B, Hq, Hkv, S, Sk, D, causal) of flash_attention, each in bf16 and fp32:
 #: TinyLlama prefill, a ragged prompt, the Whisper encoder and
-#: cross-attention, Granite/Qwen3, Zamba2, Gemma and MLA (v padded to 192)
+#: cross-attention, Granite/Qwen3, Zamba2, Gemma and MLA (v padded to 192),
+#: and two smoke-config head dims below the wgmma design's 64-column tile
+#: (16, and 24 for DeepSeek's q/k); then TinyLlama's shape in bf16 with q
+#: scaled by 8 (scores spread, so most of P lies far below 1, where the
+#: split's mid and lo terms count)
 FLASH_SHAPES = [
     (4, 32, 4, 1024, 1024, 64, True),
     (4, 32, 4, 1000, 1000, 64, True),
@@ -206,6 +212,8 @@ FLASH_SHAPES = [
     (1, 32, 32, 512, 512, 112, True),
     (1, 16, 16, 512, 512, 256, True),
     (1, 16, 16, 256, 256, 192, True),
+    (2, 4, 2, 40, 40, 16, True),
+    (2, 4, 4, 12, 100, 24, False),
 ]
 #: tests/test_kernels.py's tolerances: fp32 sums in another order, and a few
 #: bf16 steps of outputs near 1
@@ -216,21 +224,32 @@ FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 BF16_STEP = 2.0 ** -7
 
 
-def _qkv(B, Hq, Hkv, S, Sk, D, dtype, dev, seed=4):
+FLASH_CASES = [(*shape, dtype, 1.0) for shape in FLASH_SHAPES
+               for dtype in (torch.bfloat16, torch.float32)]
+FLASH_CASES.append((*FLASH_SHAPES[0], torch.bfloat16, 8.0))
+
+
+def _qkv(B, Hq, Hkv, S, Sk, D, dtype, dev, seed=4, q_scale=1.0):
     """(B, S, H, D) tensors, as the models hold them."""
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
-            for shape in ((B, S, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((B, S, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    return [torch.from_numpy(a).to(dev, dtype) for a in (q * np.float32(q_scale), k, v)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,Hq,Hkv,S,Sk,D,causal", FLASH_SHAPES)
-def test_flash_attention_close_to_plain(B, Hq, Hkv, S, Sk, D, causal, dtype, cuda_device):
-    q, k, v = (t.transpose(1, 2) for t in _qkv(B, Hq, Hkv, S, Sk, D, dtype, cuda_device))
+@pytest.mark.parametrize("B,Hq,Hkv,S,Sk,D,causal,dtype,q_scale", FLASH_CASES)
+def test_flash_attention_close_to_plain(B, Hq, Hkv, S, Sk, D, causal, dtype, q_scale,
+                                        cuda_device):
+    q, k, v = (t.transpose(1, 2)
+               for t in _qkv(B, Hq, Hkv, S, Sk, D, dtype, cuda_device, q_scale=q_scale))
     before = kfa.flash_attention.launches
+    by_design = dict(kfa.flash_attention.launches_by_design)
     got = kfa.flash_attention(q, k, v, causal=causal)
     assert kfa.flash_attention.launches == before + 1
+    design = "wgmma" if dtype == torch.bfloat16 else "fma"
+    by_design[design] += 1
+    assert kfa.flash_attention.launches_by_design == by_design
     assert got.dtype == dtype and got.shape == (B, Hq, S, D)
     assert got.transpose(1, 2).is_contiguous()
     want = ref.flash_attention_ref(q, k, v, causal=causal)
@@ -259,6 +278,15 @@ def test_flash_attention_rejects_bad_inputs(cuda_device):
         kfa.flash_attention(q, k.bfloat16(), v)
     with pytest.raises(ValueError):
         kfa.flash_attention(q, k[:, :1], v)
+    # bf16 operands the wgmma design's tensor maps cannot take raise; they
+    # are never handed to the fma design
+    hb = torch.zeros((1, 8, 4, 20), dtype=torch.bfloat16, device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="wgmma design refuses"):
+        kfa.flash_attention(hb, hb[:, :2], hb[:, :2])
+    flat = torch.zeros(8 * 4 * 64 + 1, dtype=torch.bfloat16, device=cuda_device)
+    shifted = flat[1:].view(1, 8, 4, 64).transpose(1, 2)
+    with pytest.raises(ValueError, match="storage offset"):
+        kfa.flash_attention(shifted, shifted, shifted)
     assert kfa.flash_attention.launches == before
 
 
@@ -276,3 +304,36 @@ def test_lm_generate_launches_kernel_once_per_layer_in_prefill(cuda_device):
     tokens = generate(cfg, model, prompt.to(cuda_device), 6, stats)
     assert tokens.shape == (2, 6) and stats["finite"]
     assert (stats["prefill_launches"], stats["decode_launches"]) == (cfg.n_layers, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "smollm_360m", "deepseek_v3_671b",
+                                  "gemma_7b", "zamba2_7b", "whisper_base"])
+def test_smoke_models_in_bf16_take_the_wgmma_design(arch, cuda_device):
+    """bf16 smoke models on the card: every flash_attention call (prefill,
+    Whisper's cross-attention in decode, the no-cache forward, which is
+    where MLA calls it) is a wgmma launch, none is refused, and the logits
+    stay finite."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import api
+
+    cfg = get_smoke_config(arch)
+    model = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(6)
+    before = dict(kfa.flash_attention.launches_by_design)
+    stats = {}
+    if cfg.family == "audio":
+        prompt = torch.from_numpy(rng.standard_normal(
+            (2, api.AUDIO_ENC_FRAMES, cfg.d_model)).astype(np.float32)).to(cuda_device,
+                                                                           torch.bfloat16)
+        finite = True
+    else:
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40))).to(cuda_device)
+        finite = bool(torch.isfinite(api.forward(cfg, model, prompt)).all())
+    tokens = generate(cfg, model, prompt, 4, stats)
+    torch.cuda.synchronize()
+    after = kfa.flash_attention.launches_by_design
+    assert tokens.shape == (2, 4) and stats["finite"] and finite
+    assert after["fma"] == before["fma"]
+    assert after["wgmma"] > before["wgmma"]

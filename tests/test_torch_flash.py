@@ -17,6 +17,13 @@ is held to in ``tests/test_torch_cuda.py``. Here that function meets:
   the port masks the keys the Pallas wrapper pads;
 * the models' ``sdpa`` layout (B, S, H, D) against ``repro.models.layers.sdpa``,
   its dense and chunked paths, and MLA's narrower v.
+
+For the card's wgmma design (bf16): its split of P into three bf16 terms
+(``ref.bf16x3_split``) sums to P bit for bit; the plain version with P.V
+taken as the three terms' products still meets the Pallas kernel at
+``atol 2e-5``; and every bf16 call the ten configs' smoke models make meets
+the design's preconditions (``wgmma_refusal``), so none would be refused on
+the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,8 +32,9 @@ import torch
 
 from repro.kernels import ops as jops, ref as jref
 from repro.models import layers as JL
+from repro_torch import configs as tconfigs
 from repro_torch.kernels import flash_attention as kfa, ops as tops, ref as tref
-from repro_torch.models import layers as TL
+from repro_torch.models import api as tapi, layers as TL
 
 #: fp32 sums of the same products in another order (tests/test_kernels.py:69)
 ATOL = 2e-5
@@ -130,3 +138,115 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     before = kfa.flash_attention.launches
     kfa.flash_attention(q[:, :2], k, v)
     assert kfa.flash_attention.launches == before   # the plain version counts nothing
+
+
+def _split_exact(p):
+    """bf16x3_split of fp32 numpy ``p``: (terms, each term bf16, sum == p)."""
+    terms = tref.bf16x3_split(torch.from_numpy(p))
+    in_bf16 = all(torch.equal(t, t.bfloat16().float()) for t in terms)
+    total = terms[0] + terms[1] + terms[2]
+    return terms, in_bf16, total
+
+
+def test_bf16x3_split_sums_to_p_bit_for_bit():
+    """hi + mid + lo == p in fp32 and each term is a bf16 value, for p in
+    (0, 1] (what the kernel splits): seeded p, 1.0, every power of two down
+    to 2^-120, the values just below them and seeded mantissas at every
+    exponent down to 2^-110; below that (weights under 2^-110 of the row's
+    largest), lo falls on bf16's subnormal grid, within 2^-134 of p."""
+    rng = np.random.default_rng(14)
+    f32 = np.float32
+    e = np.arange(-120, 1)
+    pow2 = np.ldexp(f32(1), e).astype(f32)
+    below = np.nextafter(pow2, f32(0))
+    seeded = (1 - rng.random(100_000, dtype=f32)).astype(f32)
+    deep = ((1 + rng.random(50_000)) * np.ldexp(1.0, rng.integers(-110, 0, 50_000))).astype(f32)
+    p = np.concatenate([seeded, [f32(1)], pow2, below[e >= -109], deep])
+    assert p.min() >= 2.0 ** -120 and p.max() == 1.0
+    (hi, mid, lo), in_bf16, total = _split_exact(p)
+    assert in_bf16
+    assert torch.equal(total, torch.from_numpy(p))
+    assert torch.equal(hi, torch.from_numpy(p).bfloat16().float())
+    tiny = np.concatenate([below[e < -109], ((1 + rng.random(10_000)) * np.ldexp(
+        1.0, rng.integers(-120, -110, 10_000))).astype(f32)])
+    _, in_bf16, total = _split_exact(tiny)
+    assert in_bf16
+    assert float((total.double() - torch.from_numpy(tiny).double()).abs().max()) <= 2.0 ** -134
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,Sk,D,causal", [
+    (1, 4, 4, 128, 128, 64, True),
+    (2, 4, 2, 256, 256, 32, True),
+    (1, 15, 5, 128, 256, 64, False),
+])
+def test_split_pv_plain_matches_pallas_interpret(B, Hq, Hkv, S, Sk, D, causal):
+    """P.V as the wgmma design takes it, the three bf16 terms' products
+    summed in fp32, on bf16-valued inputs (the kernel's): still the Pallas
+    kernel's function at atol 2e-5."""
+    q, k, v = (np.asarray(torch.from_numpy(a).bfloat16().float())
+               for a in _qkv(B, Hq, Hkv, S, Sk, D, seed=S + Sk + Hq + 1))
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    got = tref.flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+                                   pv_split=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+def test_scale_is_passed_through():
+    """An explicit scale (the models' padded head dims keep 1/sqrt(Dh))
+    equals the default at 1/sqrt(D) and scales the scores otherwise."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 16, 16, 8, seed=3))
+    torch.testing.assert_close(kfa.flash_attention(q, k, v, scale=8 ** -0.5),
+                               kfa.flash_attention(q, k, v), rtol=0, atol=0)
+    torch.testing.assert_close(kfa.flash_attention(q, k, v, scale=0.25),
+                               tref.flash_attention_ref(q * 0.25 * 8 ** 0.5, k, v),
+                               rtol=0, atol=1e-6)
+
+
+def test_wgmma_refusal_names_each_precondition():
+    ok = [torch.zeros((2, 8, 4, 64), dtype=torch.bfloat16).transpose(1, 2) for _ in range(3)]
+    assert kfa.wgmma_refusal(*ok) is None
+    q = torch.zeros((2, 4, 3, 20), dtype=torch.bfloat16).transpose(1, 2)  # rows of 40 bytes
+    assert "16 bytes" in kfa.wgmma_refusal(q, q, q)
+    flat = torch.zeros(2 * 8 * 4 * 64 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 8, 4, 64).transpose(1, 2)      # starts 2 bytes in
+    assert "storage offset 1" in kfa.wgmma_refusal(shifted, ok[1], ok[2])
+    big = torch.zeros((1, 1, 4, 320), dtype=torch.bfloat16)
+    assert "head dim" in kfa.wgmma_refusal(big, big, big)
+    assert "unit head-dim stride" in kfa.wgmma_refusal(ok[0][..., ::2], ok[1], ok[2])
+    one = torch.zeros((1, 3, 1, 24), dtype=torch.bfloat16)   # extent-1 dims are never stepped
+    assert kfa.wgmma_refusal(one.transpose(1, 2), one.transpose(1, 2), one.transpose(1, 2)) is None
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
+def test_model_calls_meet_wgmma_preconditions(arch, monkeypatch):
+    """Every flash_attention call of a smoke model in bf16 (prefill, decode
+    steps, where Whisper's cross-attention calls it, and the no-cache
+    forward) would be taken by the wgmma design on the card."""
+    calls = []
+    real = tops.flash_attention
+
+    def record(q, k, v, **kw):
+        calls.append((tuple(q.shape), kfa.wgmma_refusal(q, k, v)))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tops, "flash_attention", record)
+    cfg = tconfigs.get_smoke_config(arch)
+    model = tapi.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)))
+    cache = tapi.init_cache(cfg, 2, 8, dtype=torch.bfloat16, device="cpu")
+    if cfg.family == "audio":
+        frames = torch.from_numpy(rng.standard_normal(
+            (2, tapi.AUDIO_ENC_FRAMES, cfg.d_model)).astype(np.float32)).bfloat16()
+        _, cache = tapi.prefill(cfg, model, frames, cache)
+        start = 0
+    else:
+        _, cache = tapi.prefill(cfg, model, toks[:, :5], cache)
+        tapi.forward(cfg, model, toks)
+        start = 5
+    for i in range(2):
+        tapi.decode_step(cfg, model, cache, toks[:, i:i + 1], start + i)
+    refused = [(shape, why) for shape, why in calls if why is not None]
+    assert not refused, refused
+    if cfg.family != "ssm":
+        assert calls
