@@ -9,7 +9,9 @@ without one). Phases, one line each:
 2. build     compile every CUDA kernel of the path from src/repro_torch/csrc
              (one nvcc per source, all started together); the registers
              and spill bytes ptxas reports for flash_attention's wgmma
-             design and the HGMMA instructions in its SASS (gate: > 0)
+             design and the HGMMA instructions in its SASS (gate: > 0), and
+             for each kernel of af_gemm (quantize pass, product tiles) and
+             fx_gemm (16- and 4-byte copy paths)
 3. kernels   each kernel against its plain PyTorch version on the card, at the
              shapes the main path gives it (``torch.equal`` for the three
              GEMMs; flash_attention at the eight shapes of the LM configs,
@@ -49,7 +51,10 @@ without one). Phases, one line each:
              (fma) and at the Granite/Qwen3 shape in bf16, each with the
              bound with P.V at the fp32 rate, the bound with P split into
              three bf16 terms (the least time for bf16 inputs, which the
-             kernel line gives) and scaled_dot_product_attention
+             kernel line gives) and scaled_dot_product_attention; the CUDA
+             launches one call of each GEMM makes and each launch's device
+             time (torch.profiler), the counts gated against af_gemm's and
+             fx_gemm's declared ones
 9. profile   the device's busy share over one fused-engine minibatch of the
              ResMLP row and of the ResNet-20 row (torch.profiler)
 10. lm_serve TinyLlama-1.1B at full width (22 layers, d_model 2048, 32/4
@@ -73,7 +78,8 @@ without one). Phases, one line each:
 
 Every count of kernel launches is set to 0 just before a path runs and read
 just after it. Then one JSON line with an entry per kernel and per design of
-flash_attention (``{"kernels": [...]}``), the
+flash_attention (``{"kernels": [...]}``; each GEMM's entry also gives its
+CUDA launches per call), the
 card's nvidia-smi line and, last, the result line ``{"ok": true, "device":
 {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -118,6 +124,29 @@ TRAIN_STEPS = 600
 LINEAR_TOL = 0.08
 
 
+def entry_resources(ptxas: str) -> dict:
+    """Per kernel entry in a ``-Xptxas -v`` report: (registers, spill store
+    + load bytes), keyed by the kernel's name and template arguments."""
+    out = {}
+    for m in re.finditer(r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads.*?Used (\d+) registers", ptxas, re.S):
+        # the mangled name's last length-prefixed part, then its template args
+        rest, name = m.group(1).removeprefix("_ZN"), m.group(1)
+        while (n := re.match(r"\d+", rest)):
+            name, rest = rest[n.end():n.end() + int(n.group())], rest[n.end() + int(n.group()):]
+        args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]) if rest.startswith("I") else []
+        out[name + (f"<{','.join(args)}>" if args else "")] = (
+            int(m.group(4)), int(m.group(2)) + int(m.group(3)))
+    return out
+
+
+def kernel_label(name: str) -> str:
+    """A profiler's kernel name cut to the kernel and its template
+    arguments (``af_product_kernel<32,32>``)."""
+    m = re.search(r"(\w+_kernel)(<[^>]*>)?", name)
+    return (m.group(1) + (m.group(2) or "").replace(" ", "")) if m else name[:32]
+
+
 def phase(label: str, **fields) -> None:
     body = " ".join(f"{k}={v}" for k, v in fields.items())
     print(f"[{label}] {body}", flush=True)
@@ -139,7 +168,9 @@ def main() -> int:
     from repro_torch.core import apps, cosim, ir
     from repro_torch.core.codegen import Executor
     from repro_torch.core.compile import compile_program
-    from repro_torch.kernels import build, flash_attention as kfa, ref
+    from repro_torch.kernels import (
+        af_gemm as kaf, build, flash_attention as kfa, fx_gemm as kfx, ref,
+    )
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels.af_gemm import af_gemm
     from repro_torch.kernels.flash_attention import flash_attention
@@ -199,16 +230,21 @@ def main() -> int:
     hgmma = sum("HGMMA" in ln for ln in build.sass("flash_attention_sm90").splitlines())
     wgmma_build = {"head_dims": sm90_dp, "registers": sm90_regs, "spill_bytes": sm90_spill,
                    "wgmma_serialized": serialized, "hgmma": hgmma}
+    gemm_build = {k: entry_resources(build.PTXAS_REPORT.get(k, "")) for k in ("af_gemm",
+                                                                           "fx_gemm")}
     phase("build", **{k: f"{v:.1f}s" for k, v in secs.items()},
           ptxas=";".join(f"{k}:{v[0].replace(' ', '_')}" for k, v in regs.items() if v)
           or "cached",
           wgmma_dp="/".join(map(str, sm90_dp)) or "cached",
           wgmma_regs="/".join(map(str, sm90_regs)) or "cached",
           wgmma_spill_bytes="/".join(map(str, sm90_spill)) or "cached",
-          wgmma_serialized="/".join(map(str, serialized)) or "none", hgmma=hgmma)
+          wgmma_serialized="/".join(map(str, serialized)) or "none", hgmma=hgmma,
+          **{f"{k}_regs_spill": ",".join(f"{n}:{r}/{b}" for n, (r, b) in v.items()) or "cached"
+             for k, v in gemm_build.items()})
     report["build_s"] = secs
     report["ptxas"] = build.PTXAS_REPORT
     report["wgmma_build"] = wgmma_build
+    report["gemm_build"] = gemm_build
     if hgmma <= 0:
         raise AssertionError("the wgmma design's SASS holds no HGMMA instruction")
 
@@ -640,17 +676,46 @@ def main() -> int:
         tm["split_bound_ms"] = flash_split_bound(*flash_cases[n])
         tm["flash_bound_ms"] = flash_bound(*flash_cases[n])[0]
         tm["design"] = kfa.DESIGNS[flash_cases[n][0][0].dtype]
+    # CUDA launches one call makes, read from the profiler: every kernel the
+    # device ran during the call (copies and fills excluded), with each
+    # kernel's device time (us, mean of 5 calls)
+    from torch.profiler import ProfilerActivity, profile
+
+    def cuda_kernels(fn, calls=5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key: (e.count // calls, e.self_device_time_total / e.count)
+                for e in prof.key_averages() if e.self_device_time_total > 0
+                and not e.key.startswith(("Memcpy", "Memset"))}
+
+    per_kernel = {
+        "af_gemm": cuda_kernels(lambda: af_gemm(*af_shapes["fused_8x128x256x128"], spec=spec)),
+        "fx_gemm": cuda_kernels(lambda: fx_kernel(*fx_shapes["fused_8x144x32x800_w16"])),
+        "int8_gemm": cuda_kernels(lambda: int8_gemm(*i8_shapes["vta_tok_64x16x16"]))}
+    per_call = {k: sum(n for n, _ in v.values()) for k, v in per_kernel.items()}
+    report["cuda_launches_per_call"] = per_call
+    report["cuda_kernel_us"] = {k: {name: us for name, (_, us) in v.items()}
+                                for k, v in per_kernel.items()}
     zero_counts()  # timing launches are not main-path launches
+    if (per_call["af_gemm"], per_call["fx_gemm"]) != (kaf.CUDA_LAUNCHES, kfx.CUDA_LAUNCHES):
+        raise AssertionError(f"CUDA launches per call {per_call}, declared af_gemm "
+                             f"{kaf.CUDA_LAUNCHES} and fx_gemm {kfx.CUDA_LAUNCHES}")
     phase("timing", **{f"{k}_ms": f"{v['ms']:.5f}/{v['plain_ms']:.5f}/{v['bound_ms']:.5f}"
                        + (f"/fp32pv={v['flash_bound_ms']:.5f}/split={v['split_bound_ms']:.5f}"
                           if "split_bound_ms" in v else "")
                        + (f"/lib={v['library_ms']:.5f}" if v["library_ms"] is not None else "")
-                       for k, v in timings.items()})
+                       for k, v in timings.items()},
+          cuda_launches_per_call="/".join(f"{k}:{v}" for k, v in per_call.items()),
+          kernel_us="/".join(f"{kernel_label(name)}={us:.3f}"
+                             for v in report["cuda_kernel_us"].values()
+                             for name, us in v.items()))
     report["timing"] = timings
 
     # 9. where the time goes: device busy share over one fused minibatch ------
-    from torch.profiler import ProfilerActivity, profile
-
     def device_busy(label, fn):
         """(wall s, device busy s, top kernels) of one call of ``fn``."""
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -813,6 +878,8 @@ def main() -> int:
             "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
         })
+        if kname in per_call:
+            kernels[-1]["cuda_launches_per_call"] = per_call[kname]
         if path_launches[count] <= 0:
             raise AssertionError(f"{kname} was never launched on the main path")
     report["kernels"] = kernels

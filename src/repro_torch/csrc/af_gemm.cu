@@ -5,54 +5,91 @@
 //
 //     out[z] = AFq_o(AFq_x(x[z]) @ AFq_w(w[z])^T + b[z])
 //
-// in AdaptivFloat(n_bits, n_exp) with per-tensor exponent biases, fp32
-// accumulation and a bias + re-quantization epilogue. The grid's z-axis is
-// the batch: the fused FlexASR runner's whole group (per-sample activation
-// and output biases, one weight tensor) is one launch; the Executor's kernel
-// mode is the same kernel with B = 1. A batch stride of 0 shares an operand
-// across the batch. Ragged M/N/K edges are masked here (AFq(0) == 0, so
-// zero-filled K padding changes no sum); callers pass unpadded tensors.
+// in AdaptivFloat(n_bits, n_exp) with per-tensor exponent biases (one per
+// sample where the caller gives one), fp32 accumulation and a bias +
+// re-quantization epilogue. The fused FlexASR runner's whole group (B = 8:
+// per-sample activation and output biases, one weight tensor) is one call;
+// the Executor's kernel mode is the same call with B = 1. A batch stride of
+// 0 shares an operand across the batch. Callers pass unpadded tensors.
 //
-// Design: 64x64 output tiles, 256 threads, a 4x4 register tile per thread,
-// K in steps of 32. x and w tiles are quantized onto the AF lattice as they
-// are staged in shared memory, so the quantized operands never touch device
-// memory. Each thread accumulates its outputs with fp32 FMAs in ascending k.
+// Two launches per call, in stream order:
 //
-// The quantizer mirrors the PyTorch plain version (repro_torch/accel/
-// numerics.py) operation for operation, so the two agree bit for bit:
-// exponent floor(logf(x) / ln2), powers of two from ldexpf, rintf (round
-// half to even, never roundf), the exponent clamp, the mantissa clamp and
-// its bump to 2.0, saturation at the top and the flush below vmin / 2.
+// 1. af_quant_kernel quantizes every element of x (B, M, K) and of w once:
+//    one block per 32 x 32 tile, four independent elements per thread, read
+//    along K, turned in shared memory and written k-major into fp32
+//    scratch, (B, K, Mp) and (*, K, Np), rows padded to multiples of 4 by
+//    zeros (AFq(0) == 0). w gets one copy, or one per sample when its bias
+//    is per-sample.
+// 2. af_product_kernel reads only lattice values: K tiles of 32 rows staged
+//    with 16-byte cp.async two stages deep (the next tile's copy in flight
+//    during this tile's FMAs); each thread owns 2x2 outputs and per k reads
+//    one 8-byte pair of x (the same for a warp's lanes) and one of w
+//    (consecutive across lanes), a shared-memory wavefront each for four
+//    FMAs per lane; then b[n] and the output quantizer on its 4 outputs at
+//    once. The tile is 32x32 where that gives at least 132 blocks (a fused
+//    group: 256 blocks at B = 8), else 16x16, else 8x8 (kernel mode: 16,
+//    32, 16 and 2 blocks for ResMLP's tok, fc1, fc2 and head).
 //
-// Bound: an AF value (n_man = 4) has 5 significant bits and is exact in
-// bf16, so every product can run exactly on the bf16 tensor cores. At that
-// rate the bytes bound the main path's shapes: a fused group of B = 16
-// (128,128)x(256,128)^T is 134 MFLOP (0.14 us at 989 TFLOP/s) over ~3.3 MB
-// (1.0 us at 3.35 TB/s). This simple kernel runs fp32 FMA on the CUDA
-// cores instead, whose rate (67 TFLOP/s, 2.0 us for that group) is itself
-// above the bound, and a launch is dominated by latency. The later design:
-// a bf16 wgmma with fp32 accumulation (TMA-staged tiles, quantize in the
-// producer) computes the same function on the tensor cores.
+// Two launches rather than one cooperative launch behind a grid barrier:
+// the product reads every quantized row of its tile, so it waits for the
+// whole pass either way, and the stream orders two launches with nothing
+// co-resident to guarantee; a CUDA graph replays them back to back.
+//
+// Sum order. Each output is acc = 0, then fmaf(xq[k], wq[k], acc) for k
+// ascending, then + b[n], then the quantizer: the order under which this
+// kernel has equalled the plain version (a cuBLAS fp32 sum) bit for bit on
+// every checked point. Hence no split-K and no mma/wgmma: the tensor
+// cores' fp32 accumulation is not a sequential IEEE sum. Nor would they
+// pay: a fused B = 8 group is 67 MFLOP over 1.70 MB, 39 FLOP per byte, far
+// below the ~295 at which the bf16 tensor cores and not the memory bound
+// an H100; at the 67 TFLOP/s fp32 rate its products take 1.0 us.
+//
+// The quantizer mirrors the plain version (repro_torch/accel/numerics.py)
+// operation for operation: exponent floor(logf(x) / ln2) (an IEEE division,
+// the reference's own log2), rintf (round half to even), the exponent
+// clamp, the mantissa clamp and its bump to 2.0, saturation at the top and
+// the flush below vmin / 2. Every other division by a power of two and
+// every ldexpf is a multiplication by an exact power of two built from
+// exponent bits: both are the correctly rounded value of the same real
+// number whenever the power is a normal float, which holds for every
+// exponent of a window inside [-126, 126]. A window outside that range
+// (bias below -126 or above 119 at n_exp = 3, far from any tensor the
+// system quantizes) takes the wide quantizer (ldexpf and divisions), so
+// every bias gives the plain version's bits and none is refused: refusing
+// would need the device-held biases on the host, a synchronisation per
+// call.
+//
+// Bound: a fused B = 8 group reads 0.52 MB of x, 0.13 MB of w and writes
+// 1.05 MB of output; 1.70 MB at 3.35 TB/s is 0.51 us, and the bytes bound
+// it (the products take 0.07 us on the bf16 tensor cores, where AF(8,3)
+// values are exact). What sets the pace is latency and instruction count:
+// a quantization is ~60 dependent instructions (logf, one division), so it
+// runs once per element across the whole card with 4 independent elements
+// per thread, and the product runs one 8-byte shared load per two FMAs
+// over 4 outputs per thread and at least 132 blocks. Each of the two
+// launches then costs about what a launch of a small kernel costs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
+constexpr int QT = 32;                 // quantize pass: QT x QT tiles,
+constexpr int QTHREADS = QT * QT / 4;  // 4 elements per thread
+constexpr int BK = 32;         // product: K rows staged per cp.async stage
+constexpr int STAGES = 2;      // product: cp.async ring depth
 // float32 nearest to ln 2 (0x3f317218), the constant the plain version uses
 constexpr float LN2F = 0.693147182f;
-
-__device__ __forceinline__ float exp2i(float e) { return ldexpf(1.0f, (int)e); }
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
-__device__ float af_quant(float x, float e_lo, int n_exp, int n_man) {
+// 2^n for n in [-126, 127], from the exponent bits
+__device__ __forceinline__ float pow2i(int n) { return __int_as_float((n + 127) << 23); }
+
+// The wide quantizer: ldexpf and IEEE divisions, exact for every window.
+__device__ float af_quant_wide(float x, float e_lo, int n_exp, int n_man) {
   const float e_hi = e_lo + (float)((1 << n_exp) - 1);
   const float top = 2.0f - ldexpf(1.0f, -n_man);
   const float p = ldexpf(1.0f, n_man);
@@ -60,106 +97,274 @@ __device__ float af_quant(float x, float e_lo, int n_exp, int n_man) {
   const float ax = fabsf(x);
   const float safe = ax > 0.0f ? ax : 1.0f;
   const float e = clampf(floorf(logf(safe) / LN2F), e_lo, e_hi);
-  const float man = clampf(ax / exp2i(e), 1.0f, top);
+  const float man = clampf(ax / ldexpf(1.0f, (int)e), 1.0f, top);
   float man_q = rintf(man * p) / p;
   const bool bump = man_q >= 2.0f;
   const float e2 = clampf(e + (bump ? 1.0f : 0.0f), e_lo, e_hi);
   man_q = (bump && e2 > e) ? 1.0f : fminf(man_q, top);
-  float q = man_q * exp2i(e2);
-  q = fminf(q, top * exp2i(e_hi));
-  if (ax < exp2i(e_lo) * 0.5f) q = 0.0f;
+  float q = man_q * ldexpf(1.0f, (int)e2);
+  q = fminf(q, top * ldexpf(1.0f, (int)e_hi));
+  if (ax < ldexpf(1.0f, (int)e_lo) * 0.5f) q = 0.0f;
   return sign * q;
 }
 
-__global__ void __launch_bounds__(THREADS)
-af_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ b, const float* __restrict__ bx,
-               const float* __restrict__ bw, const float* __restrict__ bo,
-               float* __restrict__ out, int M, int N, int K,
-               long long x_bs, long long w_bs, long long b_bs,
-               int bx_bs, int bw_bs, int bo_bs, int n_exp, int n_man) {
-  __shared__ float xs[BK][BM + 4];
-  __shared__ float ws[BK][BN + 4];
+// One exponent window's constants, computed once per thread.
+struct Window {
+  float e_lo, e_hi, top, p, inv_p, vmax, flush;
+  int n_exp, n_man;
+  bool normal;  // 2^e and 2^-e are normal floats for every e in the window
+};
+
+__device__ __forceinline__ Window af_window(float e_lo, int n_exp, int n_man) {
+  Window w;
+  w.e_lo = e_lo;
+  w.e_hi = e_lo + (float)((1 << n_exp) - 1);
+  w.top = 2.0f - ldexpf(1.0f, -n_man);
+  w.p = ldexpf(1.0f, n_man);
+  w.inv_p = ldexpf(1.0f, -n_man);
+  w.vmax = w.top * ldexpf(1.0f, (int)w.e_hi);
+  w.flush = ldexpf(1.0f, (int)e_lo) * 0.5f;
+  w.n_exp = n_exp;
+  w.n_man = n_man;
+  w.normal = e_lo >= -126.0f && w.e_hi <= 126.0f;
+  return w;
+}
+
+// af_quant_wide with its powers of two as multiplications (w.normal only)
+__device__ __forceinline__ float af_quant_fast(float x, const Window& w) {
+  const float sign = (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
+  const float ax = fabsf(x);
+  const float safe = ax > 0.0f ? ax : 1.0f;
+  const float e = clampf(floorf(logf(safe) / LN2F), w.e_lo, w.e_hi);
+  const float man = clampf(ax * pow2i(-(int)e), 1.0f, w.top);
+  float man_q = rintf(man * w.p) * w.inv_p;
+  const bool bump = man_q >= 2.0f;
+  const float e2 = clampf(e + (bump ? 1.0f : 0.0f), w.e_lo, w.e_hi);
+  man_q = (bump && e2 > e) ? 1.0f : fminf(man_q, w.top);
+  float q = man_q * pow2i((int)e2);
+  q = fminf(q, w.vmax);
+  if (ax < w.flush) q = 0.0f;
+  return sign * q;
+}
+
+__device__ __forceinline__ float4 af_quant4(float4 v, const Window& w) {
+  if (w.normal)
+    return make_float4(af_quant_fast(v.x, w), af_quant_fast(v.y, w),
+                       af_quant_fast(v.z, w), af_quant_fast(v.w, w));
+  return make_float4(af_quant_wide(v.x, w.e_lo, w.n_exp, w.n_man),
+                     af_quant_wide(v.y, w.e_lo, w.n_exp, w.n_man),
+                     af_quant_wide(v.z, w.e_lo, w.n_exp, w.n_man),
+                     af_quant_wide(v.w, w.e_lo, w.n_exp, w.n_man));
+}
+
+// One operand of the quantize pass: rows of K in src (batch stride src_bs,
+// 0 = shared), `rows` rows per sample; dst holds the transpose, rows of k
+// with `rows` padded to rows4 (a multiple of 4) by zeros.
+struct Operand {
+  const float* src;
+  float* dst;
+  const float* bias;
+  long long src_bs;
+  int rows;
+  int rows4;
+  int bias_bs;
+  int tiles;  // QT x QT tiles: samples * ceil(rows4 / QT) * ceil(K / QT)
+};
+
+// One block per QT x QT tile of (rows, k) of one sample: each thread reads
+// and quantizes 4 consecutive k of one row (coalesced along K), the tile
+// turns in shared memory, and each thread writes 4 consecutive rows of one
+// k (coalesced along the rows).
+__global__ void __launch_bounds__(QTHREADS)
+af_quant_kernel(Operand a, Operand b, int K, int n_exp, int n_man, bool vec) {
+  __shared__ float tile[QT][QT + 1];  // [k][row]
+  int t = blockIdx.x;
+  Operand o = a;
+  if (t >= a.tiles) {
+    t -= a.tiles;
+    o = b;
+  }
+  const int tk = (K + QT - 1) / QT, tr = (o.rows4 + QT - 1) / QT;
+  const int k0 = (t % tk) * QT;
+  t /= tk;
+  const int r0 = (t % tr) * QT;
+  const int z = t / tr;
+  const Window win = af_window(o.bias[z * o.bias_bs], n_exp, n_man);
+  {
+    const int r = threadIdx.x / (QT / 4), c = 4 * (threadIdx.x % (QT / 4));
+    const int row = r0 + r, k = k0 + c;
+    const float* s = o.src + z * o.src_bs + (long long)row * K + k;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row < o.rows) {
+      if (vec && k < K) {
+        v = __ldg(reinterpret_cast<const float4*>(s));
+      } else {
+        v.x = k < K ? __ldg(s) : 0.0f;
+        v.y = k + 1 < K ? __ldg(s + 1) : 0.0f;
+        v.z = k + 2 < K ? __ldg(s + 2) : 0.0f;
+        v.w = k + 3 < K ? __ldg(s + 3) : 0.0f;
+      }
+    }
+    const float4 q = af_quant4(v, win);
+    tile[c][r] = q.x;
+    tile[c + 1][r] = q.y;
+    tile[c + 2][r] = q.z;
+    tile[c + 3][r] = q.w;
+  }
+  __syncthreads();
+  const int kk = threadIdx.x / (QT / 4), c = 4 * (threadIdx.x % (QT / 4));
+  if (k0 + kk < K && r0 + c < o.rows4)
+    *reinterpret_cast<float4*>(o.dst + ((long long)z * K + k0 + kk) * o.rows4 + r0 + c) =
+        make_float4(tile[kk][c], tile[kk][c + 1], tile[kk][c + 2], tile[kk][c + 3]);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// xq: (B, K, Mp) and wq: (*, K, Np) lattice values, k-major, Mp and Np
+// multiples of 4. Thread (tx, ty) owns rows 2ty, 2ty+1 and columns 2tx,
+// 2tx+1 of the tile: per k one 8-byte load of x (the same for the warp's
+// lanes of one ty) and one of w (consecutive across lanes), 4 FMAs.
+template <int BM, int BN>
+__global__ void __launch_bounds__(BM * BN / 4)
+af_product_kernel(const float* __restrict__ xq, const float* __restrict__ wq,
+                  const float* __restrict__ b, const float* __restrict__ bo,
+                  float* __restrict__ out, int M, int N, int K, int Mp, int Np,
+                  long long wq_bs, long long b_bs, int bo_bs, int n_exp, int n_man) {
+  constexpr int T = BM * BN / 4;
+  constexpr int TX = BN / 2;
+  constexpr int VX = BM / 4, VW = BN / 4;  // 16-byte vectors per row of a tile
+  __shared__ __align__(16) float xs[STAGES][BK][BM];
+  __shared__ __align__(16) float ws[STAGES][BK][BN];
 
   const int z = blockIdx.z;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  x += z * x_bs;
-  w += z * w_bs;
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+  xq += (long long)z * K * Mp;
+  wq += z * wq_bs;
   b += z * b_bs;
   out += (long long)z * M * N;
-  const float ex = bx[z * bx_bs];
-  const float ew = bw[z * bw_bs];
-  const float eo = bo[z * bo_bs];
 
-  float acc[4][4];
+  // chunk t (rows t*BK.. of K) into ring stage t % STAGES, zero past the edges
+  auto load = [&](int t) {
+    const int st = t % STAGES, k0 = t * BK;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int i = threadIdx.x; i < BK * (VX + VW); i += T) {
+      const int r = i / (VX + VW), c = 4 * (i % (VX + VW));
+      const bool is_x = c < BM;
+      const int col = is_x ? m0 + c : n0 + c - BM;
+      const bool ok = k0 + r < K && col < (is_x ? Mp : Np);
+      const float* src = is_x ? xq : wq;
+      if (ok) src += (long long)(k0 + r) * (is_x ? Mp : Np) + col;
+      cp_async16(is_x ? &xs[st][r][c] : &ws[st][r][c - BM], src, ok ? 16 : 0);
+    }
+  };
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // stage and quantize: 64 x 32 of x and of w, 8 elements each per thread
+  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  const int nk = (K + BK - 1) / BK;
 #pragma unroll
-    for (int s = 0; s < (BM * BK) / THREADS; ++s) {
-      const int i = threadIdx.x + s * THREADS;
-      const int r = i / BK, c = i % BK;
-      const int m = m0 + r, n = n0 + r, k = k0 + c;
-      const float xv = (m < M && k < K) ? x[(long long)m * K + k] : 0.0f;
-      const float wv = (n < N && k < K) ? w[(long long)n * K + k] : 0.0f;
-      xs[c][r] = af_quant(xv, ex, n_exp, n_man);
-      ws[c][r] = af_quant(wv, ew, n_exp, n_man);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = ws[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < nk) load(t);
+    cp_async_commit();
   }
-
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<STAGES - 2>();  // chunk t has landed (this thread's copies)
+    __syncthreads();              // ... and every thread's; chunk t - 1 is consumed
+    if (t + STAGES - 1 < nk) load(t + STAGES - 1);  // into chunk t - 1's stage
+    cp_async_commit();
+    const int s = t % STAGES;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      const float y = acc[i][j] + b[n];
-      out[(long long)m * N + n] = af_quant(y, eo, n_exp, n_man);
+    for (int k = 0; k < BK; ++k) {
+      const float2 a = *reinterpret_cast<const float2*>(&xs[s][k][2 * ty]);
+      const float2 w2 = *reinterpret_cast<const float2*>(&ws[s][k][2 * tx]);
+      acc[0][0] = fmaf(a.x, w2.x, acc[0][0]);
+      acc[0][1] = fmaf(a.x, w2.y, acc[0][1]);
+      acc[1][0] = fmaf(a.y, w2.x, acc[1][0]);
+      acc[1][1] = fmaf(a.y, w2.y, acc[1][1]);
     }
+  }
+  cp_async_wait<0>();
+
+  // + b[n], then the output quantizer on the 4 outputs at once
+  const int m = m0 + 2 * ty, n = n0 + 2 * tx;
+  const float b0 = n < N ? b[n] : 0.0f, b1 = n + 1 < N ? b[n + 1] : 0.0f;
+  const float4 y = af_quant4(make_float4(acc[0][0] + b0, acc[0][1] + b1, acc[1][0] + b0,
+                                         acc[1][1] + b1),
+                             af_window(bo[z * bo_bs], n_exp, n_man));
+  if (m < M) {
+    if (n < N) out[(long long)m * N + n] = y.x;
+    if (n + 1 < N) out[(long long)m * N + n + 1] = y.y;
+  }
+  if (m + 1 < M) {
+    if (n < N) out[(long long)(m + 1) * N + n] = y.z;
+    if (n + 1 < N) out[(long long)(m + 1) * N + n + 1] = y.w;
   }
 }
+
+template <int BM, int BN>
+long long n_blocks(int B, int M, int N) {
+  return (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM) * B;
+}
+
+template <int BM, int BN>
+int launch_product(const float* xq, const float* wq, const float* b, const float* bo,
+                   float* out, int B, int M, int N, int K, int Mp, int Np, long long wq_bs,
+                   long long b_bs, int bo_bs, int n_exp, int n_man, cudaStream_t stream) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, B);
+  af_product_kernel<BM, BN><<<grid, BM * BN / 4, 0, stream>>>(
+      xq, wq, b, bo, out, M, N, K, Mp, Np, wq_bs, b_bs, bo_bs, n_exp, n_man);
+  return (int)cudaGetLastError();
+}
+
+constexpr long long SMS = 132;  // an H100 SXM's streaming multiprocessors
 
 }  // namespace
 
 extern "C" {
 
-// Launches on ``stream``; returns the cudaError_t of the launch (0 = ok).
-// x: (B, M, K), w: (*, N, K), b: (*, N), out: (B, M, N), all fp32 and
-// contiguous; *_bs are batch strides in elements (0 = shared).
+// Launches the two kernels on ``stream``; returns the first cudaError_t
+// (0 = ok). x: (B, M, K), w: (*, N, K), b: (*, N), out: (B, M, N), all fp32
+// and contiguous; *_bs are batch strides in elements (0 = shared).
+// Scratch, k-major: xq holds B * K * Mp floats and wq Bq * K * Np, Mp and
+// Np = M and N rounded up to 4, Bq = 1 when w and its bias are both shared,
+// else B.
 int af_gemm_launch(const float* x, const float* w, const float* b,
                    const float* bx, const float* bw, const float* bo,
-                   float* out, int B, int M, int N, int K,
+                   float* out, float* xq, float* wq, int B, int M, int N, int K,
                    long long x_bs, long long w_bs, long long b_bs,
                    int bx_bs, int bw_bs, int bo_bs, int n_exp, int n_man,
                    void* stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, B);
-  af_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      x, w, b, bx, bw, bo, out, M, N, K, x_bs, w_bs, b_bs, bx_bs, bw_bs,
-      bo_bs, n_exp, n_man);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int Mp = (M + 3) & ~3, Np = (N + 3) & ~3;
+  const int Bq = (w_bs == 0 && bw_bs == 0) ? 1 : B;
+  const long long wq_bs = Bq == 1 ? 0 : (long long)K * Np;
+  const int tk = (K + QT - 1) / QT;
+  const Operand xo{x, xq, bx, x_bs, M, Mp, bx_bs, B * ((Mp + QT - 1) / QT) * tk};
+  const Operand wo{w, wq, bw, w_bs, N, Np, bw_bs, Bq * ((Np + QT - 1) / QT) * tk};
+  const bool vec = K % 4 == 0 && ((uintptr_t)x % 16 == 0) && ((uintptr_t)w % 16 == 0);
+  if (xo.tiles + wo.tiles > 0) {
+    af_quant_kernel<<<xo.tiles + wo.tiles, QTHREADS, 0, st>>>(xo, wo, K, n_exp, n_man, vec);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  if (n_blocks<32, 32>(B, M, N) >= SMS)
+    return launch_product<32, 32>(xq, wq, b, bo, out, B, M, N, K, Mp, Np, wq_bs, b_bs,
+                                  bo_bs, n_exp, n_man, st);
+  if (n_blocks<16, 16>(B, M, N) >= SMS)
+    return launch_product<16, 16>(xq, wq, b, bo, out, B, M, N, K, Mp, Np, wq_bs, b_bs,
+                                  bo_bs, n_exp, n_man, st);
+  return launch_product<8, 8>(xq, wq, b, bo, out, B, M, N, K, Mp, Np, wq_bs, b_bs, bo_bs,
+                              n_exp, n_man, st);
 }
 
 const char* af_gemm_error_string(int err) {

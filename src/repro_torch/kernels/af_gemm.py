@@ -1,12 +1,14 @@
 """AdaptivFloat quantized GEMM (the FlexASR PE array): the CUDA kernel's wrapper.
 
 Replaces the Pallas TPU kernel ``repro/kernels/af_gemm.py``. The kernel is
-``csrc/af_gemm.cu`` (its header says what bounds it and the later design);
-its plain PyTorch version is :func:`repro_torch.kernels.ref.af_gemm_ref`.
+``csrc/af_gemm.cu`` (its header gives the design and what bounds it); its
+plain PyTorch version is :func:`repro_torch.kernels.ref.af_gemm_ref`.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream or
-raises; on a CPU tensor it runs the plain version. ``af_gemm.launches``
-counts kernel launches (never the plain version's calls).
+raises; on a CPU tensor it runs the plain version. One call makes
+:data:`CUDA_LAUNCHES` CUDA launches (quantize every operand element once
+into scratch, then the product). ``af_gemm.launches`` counts calls that
+reach the card, one per GEMM (never the plain version's calls).
 """
 from __future__ import annotations
 
@@ -18,8 +20,10 @@ from ..accel.numerics import AdaptivFloatSpec
 from . import build, ref
 
 _SPEC = AdaptivFloatSpec(8, 3)
+#: CUDA launches per call on the card: the quantize pass, then the product
+CUDA_LAUNCHES = 2
 _ARGTYPES = (
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
     + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 )
 
@@ -95,11 +99,18 @@ def af_gemm(
     out = torch.empty((B, M, N), dtype=torch.float32, device=dev)
     if B * M * N > 0:
         lib = _lib()
+        # lattice scratch, k-major, rows padded to multiples of 4; w once, or
+        # per sample when its bias is per sample
+        mp, np_ = -(-M // 4) * 4, -(-N // 4) * 4
+        bq = 1 if w_bs == 0 and bw_bs == 0 else B
+        xq = torch.empty((B * K * mp,), dtype=torch.float32, device=dev)
+        wq = torch.empty((bq * K * np_,), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.af_gemm_launch(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), bx.data_ptr(),
-                bw.data_ptr(), bo.data_ptr(), out.data_ptr(), B, M, N, K,
+                bw.data_ptr(), bo.data_ptr(), out.data_ptr(), xq.data_ptr(),
+                wq.data_ptr(), B, M, N, K,
                 M * K, w_bs, b_bs, bx_bs, bw_bs, bo_bs, spec.n_exp, spec.n_man,
                 stream,
             )
@@ -110,5 +121,5 @@ def af_gemm(
     return out if batched else out[0]
 
 
-#: kernel launches since the counter was last set to 0
+#: calls that reached the card since the counter was last set to 0
 af_gemm.launches = 0

@@ -38,7 +38,8 @@ NVCC_FLAGS = [
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: per kernel, the compiler's resource report (``-Xptxas -v``) of its build
+#: per kernel, the compiler's resource report (``-Xptxas -v``) of its build,
+#: kept beside the library and read back when the library is reused
 PTXAS_REPORT: Dict[str, str] = {}
 
 
@@ -76,6 +77,9 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, float]:
     for name in names:
         out = lib_path(name)
         if out.exists():
+            report = out.with_suffix(".ptxas.txt")
+            if report.exists():
+                PTXAS_REPORT[name] = report.read_text()
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
@@ -91,6 +95,7 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, float]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{text}")
             tmp.unlink(missing_ok=True)
             continue
+        out.with_suffix(".ptxas.txt").write_text(text)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

@@ -1,14 +1,18 @@
 """Fixed-point quantized GEMM (the HLSCNN conv PE array): the CUDA kernel's wrapper.
 
 Replaces the Pallas TPU kernel ``repro/kernels/fx_gemm.py``. The kernel is
-``csrc/fx_gemm.cu`` (its header says what bounds it and the later design);
-its plain PyTorch version is :func:`repro_torch.kernels.ref.fx_gemm_ref`.
-Both accumulate exactly (float64 sums of lattice integers), so they agree
+``csrc/fx_gemm.cu`` (its header gives the design and what bounds it); its
+plain PyTorch version is :func:`repro_torch.kernels.ref.fx_gemm_ref`.
+Both accumulate exactly (the plain version in float64; the kernel splits
+each lattice integer into two bytes, multiplies them on the int8 tensor
+cores and adds the exact sums of its K slices in float64), so they agree
 bit for bit at every shape the wrapper accepts.
 
 On a CUDA tensor the wrapper launches the kernel on the current stream or
-raises; on a CPU tensor it runs the plain version. ``fx_gemm.launches``
-counts kernel launches (never the plain version's calls).
+raises; on a CPU tensor it runs the plain version. One call is
+:data:`CUDA_LAUNCHES` CUDA launch (clusters of eight K-slice blocks that
+combine their partial sums in shared memory). ``fx_gemm.launches`` counts
+calls that reach the card (never the plain version's calls).
 """
 from __future__ import annotations
 
@@ -19,6 +23,11 @@ import torch
 from ..accel.numerics import FixedPointSpec
 from . import build, ref
 
+#: CUDA launches per call on the card
+CUDA_LAUNCHES = 1
+#: widest operand the kernel takes: it multiplies a signed high byte and an
+#: unsigned low byte of each lattice integer on the int8 tensor cores
+MAX_BITS = 16
 _ARGTYPES = (
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
     + [ctypes.c_float] * 9 + [ctypes.c_double, ctypes.c_void_p]
@@ -88,6 +97,9 @@ def fx_gemm(
         raise ValueError(f"fx_gemm: shapes x{tuple(x.shape)} w{tuple(w.shape)}")
     if w.dim() == 3 and w.shape[0] != B:
         raise ValueError(f"fx_gemm: w batch {w.shape[0]} != x batch {B}")
+    if max(x_spec.n_bits, w_spec.n_bits) > MAX_BITS:
+        raise ValueError(f"fx_gemm: the kernel splits operands of at most {MAX_BITS} bits "
+                         f"into two bytes, got {x_spec.n_bits} and {w_spec.n_bits}")
     w_bs = N * K if w.dim() == 3 else 0
     out = torch.empty((B, M, N), dtype=torch.float32, device=dev)
     if B * M * N > 0:
@@ -107,5 +119,5 @@ def fx_gemm(
     return out if batched else out[0]
 
 
-#: kernel launches since the counter was last set to 0
+#: calls that reached the card since the counter was last set to 0
 fx_gemm.launches = 0

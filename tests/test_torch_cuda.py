@@ -6,8 +6,11 @@ the file imports no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each GEMM kernel (``af_gemm``, ``fx_gemm``, ``int8_gemm``) must equal its
-plain PyTorch version bit for bit at the main path's shapes, count exactly
-its own launches and refuse inputs it does not take; FlexASR's and VTA's ILA
+plain PyTorch version bit for bit at the main path's shapes and at their
+edges (M or N of 1, ragged K, per-sample biases, AF's flush and saturation
+points and windows at the edges of the normal range, fixed-point operands
+all at qmin or qmax), give the same bits on a second call, count exactly
+one launch per call and refuse inputs it does not take; FlexASR's and VTA's ILA
 simulators agree with their kernels (VT3, worst deviation 0.0), and the
 HLSCNN fused engine (``fx_gemm``) is bit-identical to the compiled ILA on
 the card and to the CPU. ``flash_attention`` sums in another order than its
@@ -30,8 +33,11 @@ from repro_torch.kernels import (
 )
 
 SPEC = numerics.AdaptivFloatSpec(8, 3)
-SHAPES = [(16, 32, 64), (128, 128, 128), (100, 50, 200),
-          (64, 16, 16), (16, 128, 64), (16, 64, 128), (1, 10, 64)]
+#: (M, N, K) of af_gemm: tests/test_kernels.py, ResMLP in kernel mode, then
+#: edges: M = 1, N = 1, K not a multiple of the 32-deep K tile nor of 4
+KERNEL_MODE = [(64, 16, 16), (16, 128, 64), (16, 64, 128), (1, 10, 64)]
+SHAPES = [(16, 32, 64), (128, 128, 128), (100, 50, 200), *KERNEL_MODE,
+          (1, 1, 64), (1, 1, 5), (7, 1, 37), (1, 9, 130), (33, 70, 131), (40, 24, 97)]
 
 
 @pytest.fixture
@@ -93,9 +99,102 @@ def test_af_gemm_rejects_bad_inputs(cuda_device):
         kaf.af_gemm(x.t(), w, b, 0.0, 0.0, 0.0)
 
 
-#: (B, M, N, K) of fx_gemm: the fused HLSCNN groups, then ragged shapes
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", KERNEL_MODE)
+def test_af_gemm_per_sample_biases_equal_plain(m, n, k, cuda_device):
+    """ResMLP's kernel-mode shapes in a batch of 3 with per-sample x, w and
+    output biases (w shared, so the kernel quantizes one copy per sample)."""
+    rng = np.random.default_rng(m * n + k)
+    B = 3
+    x = torch.from_numpy((rng.standard_normal((B, m, k)) * [[[0.1]], [[1.0]], [[8.0]]])
+                         .astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy((rng.standard_normal((n, k)) * 0.1).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy((rng.standard_normal((n,)) * 0.1).astype(np.float32)).to(cuda_device)
+    bx = torch.stack([numerics.af_exp_bias(x[i], SPEC) for i in range(B)])
+    bw = bx - 3
+    bo = torch.stack([numerics.af_exp_bias(x[i] @ w.T + b, SPEC) for i in range(B)])
+    got = kaf.af_gemm(x, w, b, bx, bw, bo)
+    # the plain version takes a per-sample weight bias with a per-sample weight
+    wb = w.expand(B, n, k).contiguous()
+    assert torch.equal(got, ref.af_gemm_ref(x, wb, b, bx, bw, bo))
+    # shared biases, then per-sample weights and biases
+    assert torch.equal(kaf.af_gemm(x, w, b, -4.0, bw[0], bo[1]),
+                       ref.af_gemm_ref(x, w, b, -4.0, bw[0], bo[1]))
+    wb, bb = wb * 2, b.expand(B, n).contiguous()
+    assert torch.equal(kaf.af_gemm(x, wb, bb, bx, bw, bo), ref.af_gemm_ref(x, wb, bb, bx, bw, bo))
+
+
+def _straddle(bias: float, shape, rng) -> np.ndarray:
+    """Values at and beside AF's flush threshold (vmin / 2) and saturation
+    point (vmax) of the window at ``bias``, random signs."""
+    e_lo, e_hi = bias, bias + 2 ** SPEC.n_exp - 1
+    vmax = np.float32((2 - 2.0 ** -SPEC.n_man) * 2.0 ** e_hi)
+    edges = []
+    for v in (np.float32(2.0 ** e_lo / 2), np.float32(2.0 ** e_lo), vmax):
+        edges += [v, np.nextafter(v, np.float32(0)), np.nextafter(v, np.float32(1e30))]
+    edges += [vmax * 2, np.float32(2.0 ** e_lo / 4), 0.0]
+    vals = rng.choice(np.asarray(edges, np.float32), size=shape)
+    return (vals * rng.choice([-1, 1], size=shape)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(16, 64, 128), (2, 128, 128)])
+def test_af_gemm_flush_and_saturation_edges_equal_plain(m, n, k, cuda_device):
+    """x at and beside the flush threshold and the saturation point of its
+    window; w of 0 and +-2^-3, +-2^-2, so every sum is exact in fp32 and
+    the sum order cannot matter; an output window three binades below the
+    sums' own, so the outputs both saturate and flush."""
+    rng = np.random.default_rng(k + m)
+    x = torch.from_numpy(_straddle(-6.0, (m, k), rng)).to(cuda_device)
+    w = rng.choice([0.0, 0.125, -0.125, 0.25, -0.25], size=(n, k)).astype(np.float32)
+    w = torch.from_numpy(w).to(cuda_device)
+    b = torch.zeros(n, device=cuda_device)
+    bo = numerics.af_exp_bias(x @ w.T, SPEC) - 3
+    args = (x, w, b, -6.0, -7.0, bo)
+    got = kaf.af_gemm(*args)
+    want = ref.af_gemm_ref(*args)
+    assert torch.equal(got, want)
+    amax = (2 - 2.0 ** -SPEC.n_man) * 2.0 ** (float(bo) + 7)
+    assert bool((want.abs() == amax).any()) and bool((want == 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [-127.0, -126.0, 119.0, 120.0])
+def test_af_gemm_windows_at_the_normal_range_edges(bias, cuda_device):
+    """Windows at and past the edges of the fast path's range [-126, 119]
+    (past it, the kernel takes its wide quantizer): x and the output in
+    the window at ``bias``, an identity weight so every sum is exact in any
+    order, held to the plain version on the CPU."""
+    rng = np.random.default_rng(int(bias) + 200)
+    x = (rng.standard_normal((24, 32)) * 2.0 ** (bias + 4)).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda_device)
+    w = torch.eye(32, device=cuda_device)
+    b = torch.zeros(32, device=cuda_device)
+    args = (x, w, b, bias, -7.0, bias)
+    got = kaf.af_gemm(*args)
+    want = ref.af_gemm_ref(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    assert torch.equal(got.cpu(), want)
+    assert bool((want != 0).any())
+
+
+@pytest.mark.cuda
+def test_af_gemm_repeats_bit_for_bit(cuda_device):
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((8, 128, 128)).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy((rng.standard_normal((256, 128)) * 0.1).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy((rng.standard_normal((256,)) * 0.1).astype(np.float32)).to(cuda_device)
+    args = (x, w, b, torch.full((8,), -6.0, device=cuda_device), -10.0,
+            torch.full((8,), -4.0, device=cuda_device))
+    first = kaf.af_gemm(*args)
+    assert torch.equal(first, kaf.af_gemm(*args))
+    assert torch.equal(first, ref.af_gemm_ref(*args))
+
+
+#: (B, M, N, K) of fx_gemm: the fused HLSCNN groups, then ragged shapes (B = 1,
+#: and K = 801: a ragged last K slice on the 4-byte copy path)
 FX_SHAPES = [(8, 144, 32, 800), (16, 144, 32, 800), (1, 7, 5, 3), (3, 33, 17, 70),
-             (2, 144, 32, 75)]
+             (2, 144, 32, 75), (1, 144, 32, 800), (2, 144, 32, 801), (1, 5, 3, 801),
+             (3, 40, 50, 9)]
 #: (M, N, K) of int8_gemm: ResMLP on VTA in kernel mode, then tests/test_kernels.py
 I8_SHAPES = [(64, 16, 16), (16, 128, 64), (16, 64, 128), (1, 10, 64),
              (1, 3, 7), (128, 128, 128), (200, 300, 150)]
@@ -121,6 +220,51 @@ def test_fx_gemm_equals_plain(B, M, N, K, bits, cuda_device):
     want = ref.fx_gemm_ref(x, w, specs["x_spec"], wspec, specs["o_spec"])
     assert torch.equal(got, want)
     assert torch.equal(got, kfx.fx_gemm(x.cpu(), w.cpu(), **specs).to(cuda_device))
+
+
+#: fx_gemm's lattice extremes: every operand at qmin or at qmax (scaled past
+#: the range, so the quantizer clamps), at the main path's K and at 4096
+FX_EXTREMES = [(2, 20, 33, 800), (1, 16, 32, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8])
+@pytest.mark.parametrize("xs,ws", [(-1, -1), (1, -1), (1, 1)])
+@pytest.mark.parametrize("B,M,N,K", FX_EXTREMES)
+def test_fx_gemm_lattice_extremes_equal_plain(B, M, N, K, xs, ws, bits, cuda_device):
+    wspec = numerics.HLSCNN_WEIGHT_UPDATED if bits == 16 else numerics.HLSCNN_WEIGHT_ORIGINAL
+    act = numerics.HLSCNN_ACT
+    x = torch.full((B, M, K), xs * 1e4, device=cuda_device)
+    w = torch.full((N, K), ws * 1e4, device=cuda_device)
+    # one column of mixed signs, so some sums cancel exactly
+    w[0, ::2] *= -1
+    got = kfx.fx_gemm(x, w, x_spec=act, w_spec=wspec, o_spec=act)
+    assert torch.equal(got, ref.fx_gemm_ref(x, w, act, wspec, act))
+
+
+@pytest.mark.cuda
+def test_fx_gemm_refuses_operands_wider_than_16_bits(cuda_device):
+    """The kernel splits each lattice integer into two bytes; a wider spec
+    raises on the card (the plain version on the CPU takes it)."""
+    x, w = _patches(1, 8, 4, 16, cuda_device)
+    wide = numerics.FixedPointSpec(n_bits=17, n_frac=8)
+    before = kfx.fx_gemm.launches
+    with pytest.raises(ValueError, match="16 bits"):
+        kfx.fx_gemm(x, w, x_spec=wide, w_spec=numerics.HLSCNN_WEIGHT_UPDATED,
+                    o_spec=numerics.HLSCNN_ACT)
+    assert kfx.fx_gemm.launches == before
+    kfx.fx_gemm(x.cpu(), w.cpu(), x_spec=wide, w_spec=numerics.HLSCNN_WEIGHT_UPDATED,
+                o_spec=numerics.HLSCNN_ACT)
+
+
+@pytest.mark.cuda
+def test_fx_gemm_repeats_bit_for_bit(cuda_device):
+    x, w = _patches(16, 144, 32, 800, cuda_device, seed=11)
+    specs = dict(x_spec=numerics.HLSCNN_ACT, w_spec=numerics.HLSCNN_WEIGHT_UPDATED,
+                 o_spec=numerics.HLSCNN_ACT)
+    first = kfx.fx_gemm(x, w, **specs)
+    for _ in range(3):
+        assert torch.equal(first, kfx.fx_gemm(x, w, **specs))
 
 
 @pytest.mark.cuda
