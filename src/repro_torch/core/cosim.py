@@ -29,7 +29,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve
+from ..device import DeviceLike, deterministic, resolve
 from . import ir
 from .codegen import Executor, to_numpy
 
@@ -120,13 +120,16 @@ def _xent(logits, y):
     return -torch.take_along_dim(logp, y[..., None], dim=-1).mean()
 
 
+@deterministic()
 def train_app(expr, params, X, y, steps=300, bs=32, lr=2e-3, seed=0, embed=None,
               device: DeviceLike = None):
     """Train by differentiating through the IR interpreter on ``device``.
 
     Minibatch indices (and the embedding init) are drawn from the same
     numpy generator, in the same order, as the reference; returns the
-    trained parameters as numpy arrays."""
+    trained parameters as numpy arrays. Runs under
+    :func:`repro_torch.device.deterministic`, so the same call gives the
+    same parameters bit for bit on the same card."""
     dev = resolve(device)
     rng = np.random.default_rng(seed)
 

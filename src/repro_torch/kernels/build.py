@@ -27,7 +27,6 @@ SOURCES: Dict[str, str] = {
     "af_gemm": "af_gemm.cu",
     "fx_gemm": "fx_gemm.cu",
     "int8_gemm": "int8_gemm.cu",
-    "flash_attention": "flash_attention.cu",
     "flash_attention_sm90": "flash_attention_sm90.cu",
 }
 

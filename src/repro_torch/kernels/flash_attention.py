@@ -1,17 +1,21 @@
 """FlashAttention with GQA and causal masking: the CUDA kernels' wrapper.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py`` with two
-designs, chosen by a fixed rule on the dtype (:data:`DESIGNS`):
+instantiations of one CUDA source (``csrc/flash_attention_sm90.cu``, whose
+header says what bounds them), chosen by a fixed rule on the dtype
+(:data:`DESIGNS`):
 
-* ``"wgmma"`` for bfloat16 (``csrc/flash_attention_sm90.cu``): Q.K^T and
-  P.V on Hopper's tensor cores, P split into three bf16 terms whose sum is
-  the fp32 P exactly, K/V tiles staged by TMA;
-* ``"fma"`` for float32 (``csrc/flash_attention.cu``): every product an
-  fp32 FMA on the CUDA cores. fp32 products have no exact tensor-core route
-  without TF32, which the port never uses.
+* ``"wgmma"`` for bfloat16: Q.K^T and P.V on Hopper's tensor cores, P split
+  into three bf16 terms whose sum is the fp32 P exactly, K/V tiles staged
+  by TMA;
+* ``"wgmma3"`` for float32: a split pass writes q, k and v as three bf16
+  terms each into scratch (exact, :func:`repro_torch.kernels.ref.bf16x3_split`),
+  and the same kernel sums the six pairs of terms whose indices add to at
+  most 2 in Q.K^T and in P.V; the three pairs it drops each weigh at most
+  2^-24 of the product. Two CUDA launches a call. TF32 is never used.
 
-Each source's header says what bounds it. Both compute the plain PyTorch
-version :func:`repro_torch.kernels.ref.flash_attention_ref`.
+Both compute the plain PyTorch version
+:func:`repro_torch.kernels.ref.flash_attention_ref`.
 
 The wrapper takes the Pallas kernel's layout, q (B, Hq, S, D) and k, v
 (B, Hkv, Sk, D), at any strides with a unit head-dim stride: a model's
@@ -19,10 +23,11 @@ The wrapper takes the Pallas kernel's layout, q (B, Hq, S, D) and k, v
 The output is laid out (B, S, Hq, D) in memory and returned as a
 (B, Hq, S, D) view, so ``out.transpose(1, 2)`` is contiguous again. Unlike
 the Pallas wrapper nothing is padded: ragged S and Sk are masked in the
-kernels, and padded keys never get weight. The wgmma design reads its
+kernels, and padded keys never get weight. The bf16 design reads its
 operands through TMA tensor maps, which need more of them
 (:func:`wgmma_refusal`); an input it refuses raises, and is never handed to
-the other design or to the plain version.
+the other design or to the plain version. The fp32 design's maps read its
+own aligned scratch, so it takes any strides with a unit head-dim stride.
 
 On a CUDA tensor the wrapper launches a kernel on the current stream or
 raises; on a CPU tensor it runs the plain version.
@@ -42,30 +47,40 @@ from . import build, ref
 #: the largest head dim either design takes (Gemma's 256)
 MAX_HEAD_DIM = 256
 #: the design each dtype takes on the card
-DESIGNS = {torch.bfloat16: "wgmma", torch.float32: "fma"}
-_FMA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_STRIDES = [ctypes.c_longlong] * 12
-_TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-#: design -> (kernel name in build.SOURCES, C entry point, its argument types)
+DESIGNS = {torch.bfloat16: "wgmma", torch.float32: "wgmma3"}
+#: CUDA launches one call of each design makes (the fp32 split pass + kernel)
+CUDA_LAUNCHES = {"wgmma": 1, "wgmma3": 2}
+_TAIL = [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+#: design -> (C entry point, its argument types)
 _ENTRY = {
-    "fma": ("flash_attention", "flash_attention",
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + _STRIDES + _TAIL),
-    "wgmma": ("flash_attention_sm90", "flash_attention_sm90",
-              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + _STRIDES + _TAIL),
+    "wgmma": ("flash_attention_sm90_launch",
+              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + _TAIL),
+    "wgmma3": ("flash_attention_sm90_fp32_launch",
+               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + _TAIL),
 }
 
 
 def _lib(design: str):
-    """(launch function, error-string function) of a design's library."""
-    kernel, prefix, argtypes = _ENTRY[design]
-    lib = build.load(kernel)
-    launch, errstr = getattr(lib, f"{prefix}_launch"), getattr(lib, f"{prefix}_error_string")
+    """(launch function, error-string function) of a design."""
+    name, argtypes = _ENTRY[design]
+    lib = build.load("flash_attention_sm90")
+    launch, errstr = getattr(lib, name), lib.flash_attention_sm90_error_string
     if launch.argtypes is None:
         launch.argtypes = argtypes
         launch.restype = ctypes.c_int
         errstr.argtypes = [ctypes.c_int]
         errstr.restype = ctypes.c_char_p
     return launch, errstr
+
+
+def _split_scratch(B: int, Hq: int, Hkv: int, S: int, Sk: int, D: int,
+                   device: torch.device):
+    """The fp32 design's bf16 scratch for the three terms of q, k and v,
+    laid out (3, B, H, L, D8) each (D8: D rounded up to 8, so every row
+    starts on 16 bytes), as three flat tensors."""
+    d8 = -(-D // 8) * 8
+    sizes = [3 * B * Hq * S * d8] + [3 * B * Hkv * Sk * d8] * 2
+    return list(torch.empty(sum(sizes), dtype=torch.bfloat16, device=device).split(sizes))
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
@@ -137,18 +152,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _check(name, t, q)
     if Sk == 0:
         raise ValueError("flash_attention: no keys (Sk = 0)")
-    if design == "wgmma":
+    if design == "wgmma":   # the fp32 design reads its own aligned scratch
         reason = wgmma_refusal(q, k, v)
         if reason is not None:
             raise ValueError(f"flash_attention: the wgmma design refuses bf16 input: {reason}")
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() > 0:
         launch, errstr = _lib(design)
-        dtype = [_FMA_DTYPES[q.dtype]] if design == "fma" else []
+        scratch = [] if design == "wgmma" else _split_scratch(B, Hq, Hkv, S, Sk, D, q.device)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                         *dtype, B, Hq, Hkv, S, Sk, D,
+                         *(t.data_ptr() for t in scratch), B, Hq, Hkv, S, Sk, D,
                          *_strides(q), *_strides(k), *_strides(v), *_strides(out),
                          scale, int(causal), stream)
         if err != 0:

@@ -1,7 +1,8 @@
 """int8 x int8 -> int32 GEMM (the VTA GEMM core): the CUDA kernel's wrapper.
 
 Replaces the Pallas TPU kernel ``repro/kernels/int8_gemm.py``. The kernel is
-``csrc/int8_gemm.cu`` (its header says what bounds it and the later design);
+``csrc/int8_gemm.cu`` (int8 ``mma.sync`` on fragments loaded straight from
+global memory, one round trip; its header says what bounds it);
 its plain PyTorch version is :func:`repro_torch.kernels.ref.int8_gemm_ref`.
 Both are exact, so they agree bit for bit.
 
@@ -20,7 +21,7 @@ from . import build, ref
 #: int32 sums of int8 products (|a·b| <= 2^14) cannot overflow below this K
 MAX_K = 2 ** 17 - 1
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _lib() -> ctypes.CDLL:
@@ -28,9 +29,22 @@ def _lib() -> ctypes.CDLL:
     if lib.int8_gemm_launch.argtypes is None:
         lib.int8_gemm_launch.argtypes = _ARGTYPES
         lib.int8_gemm_launch.restype = ctypes.c_int
+        lib.int8_gemm_empty_launch.argtypes = [ctypes.c_void_p]
+        lib.int8_gemm_empty_launch.restype = ctypes.c_int
         lib.int8_gemm_error_string.argtypes = [ctypes.c_int]
         lib.int8_gemm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def empty_launch() -> None:
+    """Launch an empty kernel of int8_gemm's block shape on the current
+    stream: the launch floor ``chip_smoke.py`` times the small GEMMs
+    against. Counts no launch."""
+    lib = _lib()
+    err = lib.int8_gemm_empty_launch(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.int8_gemm_error_string(err).decode()
+        raise RuntimeError(f"empty kernel launch failed: {msg} (cudaError {err})")
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -63,8 +77,10 @@ def int8_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         lib = _lib()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            # fragments load 16 bytes at a time where every row starts on 16
+            wide = int(K % 16 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
             err = lib.int8_gemm_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                       M, N, K, stream)
+                                       M, N, K, wide, stream)
         if err != 0:
             msg = lib.int8_gemm_error_string(err).decode()
             raise RuntimeError(f"int8_gemm launch failed: {msg} (cudaError {err})")

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels (the ``ref.py`` contract).
 
 af_gemm_ref, fx_gemm_ref, int8_gemm_ref and flash_attention_ref (with
-bf16x3_split, the wgmma design's split of P).
+bf16x3_split, the wgmma designs' split of P and of fp32 operands).
 
 Each function computes what its kernel computes, in ordinary tensor ops: the
 CPU runs it in place of the kernel, and tests and ``chip_smoke.py`` hold the
@@ -72,8 +72,12 @@ def af_gemm_ref(
     """FlexASR LinearLayer semantics: AFq(AFq(x) @ AFq(w)^T + b).
 
     x: (M, K) or (B, M, K); w: (N, K) or (B, N, K); b: (N,) or (B, N).
-    Biases are numbers, 0-d tensors or per-sample ``(B,)`` tensors.
+    Biases are numbers, 0-d tensors or per-sample ``(B,)`` tensors. A
+    per-sample weight bias on a shared (N, K) weight quantizes one copy of
+    the weight per sample, each with its sample's bias, as the kernel does.
     """
+    if w.dim() == 2 and torch.as_tensor(exp_bias_w).dim() == 1:
+        w = w.expand(len(exp_bias_w), *w.shape)
     xq = numerics.af_quantize(x, spec, exp_bias=_bias(exp_bias_x, x))
     wq = numerics.af_quantize(w, spec, exp_bias=_bias(exp_bias_w, w))
     y = xq @ wq.mT + b.unsqueeze(-2)
@@ -99,9 +103,16 @@ def bf16x3_split(p: torch.Tensor):
     return hi, mid, lo
 
 
+#: the pairs (i, j) of bf16 terms (hi, mid, lo = 0, 1, 2) whose products the
+#: fp32 wgmma design sums: i + j <= 2. Each dropped pair (mid.lo, lo.mid,
+#: lo.lo) weighs at most 2^-24 |a||b|, since |mid| <= 2^-8 |a| and
+#: |lo| <= 2^-16 |a|.
+TERM_PAIRS = ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, scale: Optional[float] = None,
-                        pv_split: bool = False) -> torch.Tensor:
+                        pv_split: bool = False, split3: bool = False) -> torch.Tensor:
     """The flash_attention kernel's function in plain ops: q (B, Hq, S, D),
     k and v (B, Hkv, Sk, D) -> (B, Hq, S, D) in q's dtype.
 
@@ -110,16 +121,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal mask ``q_idx >= k_idx`` aligned top-left; masked scores at the
     finite NEG_INF and an empty denominator set to 1, as in the Pallas
     kernel. Every key given is real (nothing is padded). ``pv_split`` takes
-    P.V as the wgmma design does, the sum of the products of the three bf16
-    terms of P (:func:`bf16x3_split`) with V: the same function, summed in
-    another order.
+    P.V as the bf16 wgmma design does, the sum of the products of the three
+    bf16 terms of P (:func:`bf16x3_split`) with V: the same function, summed
+    in another order. ``split3`` takes both products as the fp32 design
+    does: q, k, v and P each as three bf16 terms, Q.K^T and P.V each the
+    sum of the products of the :data:`TERM_PAIRS` of terms.
     """
     S, D = q.shape[2], q.shape[3]
     Sk, group = k.shape[2], q.shape[1] // k.shape[1]
     scale = 1.0 / D ** 0.5 if scale is None else scale
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
-    s = q.float() @ kf.mT * scale
+    if split3:
+        qt, kt, vt = bf16x3_split(q), bf16x3_split(kf), bf16x3_split(vf)
+        s = sum(qt[i] @ kt[j].mT for i, j in TERM_PAIRS) * scale
+    else:
+        s = q.float() @ kf.mT * scale
     if causal:
         qi = torch.arange(S, device=q.device)[:, None]
         ki = torch.arange(Sk, device=q.device)[None, :]
@@ -127,7 +144,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     den = p.sum(dim=-1, keepdim=True)
     den = torch.where(den == 0, torch.ones_like(den), den)
-    if pv_split:
+    if split3:
+        pt = bf16x3_split(p)
+        pv = sum(pt[i] @ vt[j] for i, j in TERM_PAIRS)
+    elif pv_split:
         hi, mid, lo = bf16x3_split(p)
         pv = hi @ vf + mid @ vf + lo @ vf
     else:

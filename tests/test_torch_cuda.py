@@ -17,9 +17,13 @@ the card and to the CPU. ``flash_attention`` sums in another order than its
 plain version, so it is held to it within ``tests/test_kernels.py``'s
 tolerances (fp32 2e-5, bf16 3e-2: a few bf16 rounding steps of outputs near
 1) and, in bf16, within one bf16 step; bf16 goes to the wgmma design and
-fp32 to the fma design, and a bf16 input the wgmma design cannot take
-raises; the LM serving path launches it once per layer in prefill and
-never in decode.
+fp32 to the three-term wgmma design (``wgmma3``, at every head dim 1-256,
+ragged S and Sk, any strides with a unit head-dim stride, also within 2e-5
+of the plain version taken as that design sums), and a bf16 input the
+wgmma design cannot take raises; both repeat bit for bit; the LM serving
+path launches it once per layer in prefill and never in decode.
+``int8_gemm`` is also checked at every K around its 32-deep k-steps and its
+256-deep one-round-trip limit, at M = N = 1 and with operands of all -128.
 """
 import numpy as np
 import pytest
@@ -114,7 +118,9 @@ def test_af_gemm_per_sample_biases_equal_plain(m, n, k, cuda_device):
     bw = bx - 3
     bo = torch.stack([numerics.af_exp_bias(x[i] @ w.T + b, SPEC) for i in range(B)])
     got = kaf.af_gemm(x, w, b, bx, bw, bo)
-    # the plain version takes a per-sample weight bias with a per-sample weight
+    # the plain version quantizes the shared weight once per sample too: the
+    # same as a weight repeated per sample
+    assert torch.equal(got, ref.af_gemm_ref(x, w, b, bx, bw, bo))
     wb = w.expand(B, n, k).contiguous()
     assert torch.equal(got, ref.af_gemm_ref(x, wb, b, bx, bw, bo))
     # shared biases, then per-sample weights and biases
@@ -281,6 +287,44 @@ def test_int8_gemm_equals_plain(M, N, K, cuda_device):
     assert torch.equal(got.cpu(), a.cpu().int() @ b.cpu().int().T)
 
 
+#: K around the kernel's 32-deep k-steps and its 256-deep one-round-trip limit
+I8_EDGE_K = [1, 15, 16, 17, 31, 32, 33, 255, 256, 257]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", I8_EDGE_K)
+def test_int8_gemm_edges_equal_plain(K, cuda_device):
+    """At M = N = 1, at a ragged (5, 9) tile, and with both operands all
+    -128 (the largest products, -128 * -128 = 2^14, summed K times); also on
+    a view that starts one byte in, where the fragments load byte by byte."""
+    rng = np.random.default_rng(K)
+
+    def i8(*shape):
+        return torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)).to(cuda_device)
+
+    cases = [(i8(1, K), i8(1, K)), (i8(5, K), i8(9, K))]
+    full = torch.full((3, K), -128, dtype=torch.int8, device=cuda_device)
+    cases.append((full, full[:2].contiguous()))
+    flat = i8(5 * K + 1)
+    cases.append((flat[1:].view(5, K), i8(9, K)))
+    for a, b in cases:
+        got = ki8.int8_gemm(a, b)
+        assert torch.equal(got, ref.int8_gemm_ref(a, b)), (tuple(a.shape), tuple(b.shape))
+        assert torch.equal(got.cpu(), a.cpu().int() @ b.cpu().int().T)
+    assert int(ki8.int8_gemm(full, full)[0, 0]) == K * 2 ** 14
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", [(16, 64, 128), (200, 300, 600)])
+def test_int8_gemm_repeats_bit_for_bit(M, N, K, cuda_device):
+    rng = np.random.default_rng(M + K)
+    a, b = (torch.from_numpy(rng.integers(-128, 128, s).astype(np.int8)).to(cuda_device)
+            for s in ((M, K), (N, K)))
+    first = ki8.int8_gemm(a, b)
+    for _ in range(3):
+        assert torch.equal(first, ki8.int8_gemm(a, b))
+
+
 @pytest.mark.cuda
 def test_vta_vt3_ila_vs_kernel_on_card(cuda_device):
     ok, worst = vta.TARGET.vt3_checks["gemm_ila_vs_int8_gemm_kernel"](device=cuda_device)
@@ -391,7 +435,7 @@ def test_flash_attention_close_to_plain(B, Hq, Hkv, S, Sk, D, causal, dtype, q_s
     by_design = dict(kfa.flash_attention.launches_by_design)
     got = kfa.flash_attention(q, k, v, causal=causal)
     assert kfa.flash_attention.launches == before + 1
-    design = "wgmma" if dtype == torch.bfloat16 else "fma"
+    design = "wgmma" if dtype == torch.bfloat16 else "wgmma3"
     by_design[design] += 1
     assert kfa.flash_attention.launches_by_design == by_design
     assert got.dtype == dtype and got.shape == (B, Hq, S, D)
@@ -403,6 +447,43 @@ def test_flash_attention_close_to_plain(B, Hq, Hkv, S, Sk, D, causal, dtype, q_s
     # the same function on contiguous (B, H, S, D) copies
     again = kfa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
     assert torch.equal(got, again)
+
+
+#: fp32 head dims of the three-term design: 1, ragged ones in each 64-column
+#: chunk count (20, 112), and every padded head dim's own (64, 128, 192, 256)
+FP32_HEAD_DIMS = [1, 20, 64, 112, 128, 192, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", FP32_HEAD_DIMS)
+def test_flash_attention_fp32_design_at_every_head_dim(D, causal, cuda_device):
+    """The wgmma3 design against the plain version (fp32 2e-5) and against
+    the plain version taken as it sums (six pairs of bf16 terms), at ragged
+    S and Sk with GQA; then on views that start 4 bytes in, which the bf16
+    design's tensor maps would refuse and the fp32 design's scratch takes.
+    Two calls give the same bits."""
+    B, Hq, Hkv, S, Sk = 2, 6, 2, 77, 77 if causal else 131
+    q, k, v = (t.transpose(1, 2) for t in _qkv(B, Hq, Hkv, S, Sk, D, torch.float32,
+                                               cuda_device, seed=D))
+    by_design = dict(kfa.flash_attention.launches_by_design)
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    by_design["wgmma3"] += 1
+    assert kfa.flash_attention.launches_by_design == by_design
+    assert got.dtype == torch.float32 and got.shape == (B, Hq, S, D)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, atol=FLASH_ATOL[torch.float32], rtol=0)
+    split = ref.flash_attention_ref(q, k, v, causal=causal, split3=True)
+    torch.testing.assert_close(got, split, atol=FLASH_ATOL[torch.float32], rtol=0)
+    assert torch.equal(got, kfa.flash_attention(q, k, v, causal=causal))
+    shifted = []
+    for t in (q, k, v):
+        flat = torch.empty(t.numel() + 1, device=cuda_device)
+        view = flat[1:].view(B, t.shape[2], t.shape[1], D).transpose(1, 2)
+        view.copy_(t)
+        shifted.append(view)
+    assert "16 bytes" in kfa.wgmma_refusal(*shifted)
+    assert torch.equal(got, kfa.flash_attention(*shifted, causal=causal))
 
 
 @pytest.mark.cuda
@@ -423,7 +504,7 @@ def test_flash_attention_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         kfa.flash_attention(q, k[:, :1], v)
     # bf16 operands the wgmma design's tensor maps cannot take raise; they
-    # are never handed to the fma design
+    # are never handed to the fp32 design
     hb = torch.zeros((1, 8, 4, 20), dtype=torch.bfloat16, device=cuda_device).transpose(1, 2)
     with pytest.raises(ValueError, match="wgmma design refuses"):
         kfa.flash_attention(hb, hb[:, :2], hb[:, :2])
@@ -479,5 +560,5 @@ def test_smoke_models_in_bf16_take_the_wgmma_design(arch, cuda_device):
     torch.cuda.synchronize()
     after = kfa.flash_attention.launches_by_design
     assert tokens.shape == (2, 4) and stats["finite"] and finite
-    assert after["fma"] == before["fma"]
+    assert after["wgmma3"] == before["wgmma3"]
     assert after["wgmma"] > before["wgmma"]

@@ -250,3 +250,59 @@ def test_model_calls_meet_wgmma_preconditions(arch, monkeypatch):
     assert not refused, refused
     if cfg.family != "ssm":
         assert calls
+
+
+#: (B, Hq, Hkv, S, Sk, D, causal): GQA, causal, ragged S and Sk, head dims
+#: below and across the design's 64-column chunks
+SPLIT3_SHAPES = [
+    (2, 4, 2, 48, 48, 20, True),
+    (1, 6, 2, 37, 37, 64, True),
+    (1, 4, 1, 33, 100, 24, False),
+    (2, 3, 3, 70, 70, 112, True),
+    (1, 2, 2, 17, 129, 256, False),
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,Sk,D,causal", SPLIT3_SHAPES)
+def test_split3_plain_matches_fp32_plain_and_reference(B, Hq, Hkv, S, Sk, D, causal):
+    """The fp32 wgmma design's function (q, k, v and P as three bf16 terms,
+    six pairs of terms in each product) against the fp32 plain version and
+    the reference's oracle on repeated KV heads, at atol 2e-5; the oracle's
+    causal mask is bottom-right, so it is compared causal only at S == Sk."""
+    q, k, v = _qkv(B, Hq, Hkv, S, Sk, D, seed=S + Sk + D)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = tref.flash_attention_ref(tq, tk, tv, causal=causal, split3=True)
+    plain = tref.flash_attention_ref(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL, rtol=0)
+    if causal:
+        assert S == Sk
+    g = Hq // Hkv
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(np.repeat(k, g, axis=1)),
+                                    jnp.asarray(np.repeat(v, g, axis=1)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-3, 1e4])
+def test_dropped_term_pairs_stay_under_2_to_the_minus_24(scale):
+    """The three pairs the fp32 design drops (mid.lo, lo.mid, lo.lo) each
+    weigh at most 2^-24 |a||b|, elementwise, on seeded fp32 values; over a
+    dot product the six kept pairs then differ from the exact float64 sum by
+    at most 3 * 2^-24 of the sum of |a||b| (the terms are exact)."""
+    rng = np.random.default_rng(int(scale * 7) + 3)
+    a = (rng.standard_normal((64, 96)) * scale).astype(np.float32)
+    b = (rng.standard_normal((80, 96)) * scale).astype(np.float32)
+    ta, tb = torch.from_numpy(a).double(), torch.from_numpy(b).double()
+    at = [t.double() for t in tref.bf16x3_split(torch.from_numpy(a))]
+    bt = [t.double() for t in tref.bf16x3_split(torch.from_numpy(b))]
+    assert torch.equal(at[0] + at[1] + at[2], ta) and torch.equal(bt[0] + bt[1] + bt[2], tb)
+    bound = 2.0 ** -24
+    for t, full in ((at, ta), (bt, tb)):
+        assert bool((t[1].abs() <= 2.0 ** -8 * full.abs()).all())
+        assert bool((t[2].abs() <= 2.0 ** -16 * full.abs()).all())
+    mag = ta.abs()[:, None, :] * tb.abs()[None, :, :]
+    for i, j in ((1, 2), (2, 1), (2, 2)):
+        assert (i, j) not in tref.TERM_PAIRS
+        prod = (at[i][:, None, :] * bt[j][None, :, :]).abs()
+        assert bool((prod <= bound * mag).all()), (i, j)
+    kept = sum(at[i] @ bt[j].mT for i, j in tref.TERM_PAIRS)
+    assert bool(((kept - ta @ tb.mT).abs() <= 3 * bound * mag.sum(-1)).all())
