@@ -52,6 +52,29 @@ without one). Phases, one line each:
              onto VTA (7 vta_gemm, 4 vta_add, 2 vta_relu), columns ideal,
              ila and kernel; int8_gemm launches 7 times per point in the
              kernel column, which is bit-identical to ila
+   validate  the paper's verification tasks on the card
+             (``repro_torch.core.validate``): VT1 (4 ops), VT2 over every
+             declared case of the four targets, Table 3 (3 exhaustive + 5
+             randomized rows), Table 1 and Table 2 (25 inputs per row);
+             VT3 through ``validate.vt3_results``, its af_gemm and int8_gemm
+             launches counted as a path of their own ("vt3"). Gates: every
+             VT1, VT2 and Table-3 verdict true, VT3 (True, 0.0) for both
+             checks, each Table-2 row's error within its intrinsic's tol of
+             the same rows run on the CPU
+   lint      ``ilalint.lint_registry()``: the findings equal LINT_EXPECTED
+             (FlexASR's five fn_start hazards and the targets' notes, which
+             tests/test_torch_ilalint.py holds equal to the JAX reference's)
+   campaign  the fault-injection acceptance campaign on the card (FlexASR,
+             HLSCNN, VecUnit x identity, trunc_width, sat_wrap,
+             round_floor, drop_cfg, stale_state; ResMLP; pipelined, 2
+             devices per target, escalate, 24 points, 60 training steps).
+             Gates: identity mutants undetected at every tier, identity
+             null shifts exactly 0.0, flexasr:sat_wrap an app-only escape.
+             Then the static configuration run serially and with 2 spawned
+             workers on the card: equal matrix digests; and a sharded run
+             with a crashing and a hanging mutant: recorded as crash and
+             timeout (the hung worker terminated holding its CUDA
+             context), the healthy mutants complete
 8. timing    kernel, plain version, bound and (where one exists) the PyTorch
              library call at the main path's shapes (CUDA events around
              CUDA-graph replays, after a warm-up), and an empty kernel in
@@ -94,7 +117,8 @@ without one). Phases, one line each:
 Every count of kernel launches is set to 0 just before a path runs and read
 just after it. Then one JSON line with an entry per kernel and per design of
 flash_attention (``{"kernels": [...]}``; each entry also gives its CUDA
-launches per call and its time above the launch floor), the
+launches per call, its time above the launch floor and its launches per
+path: "table4" for phases 4-7, "vt3", "lm" for phases 10-12), the
 card's nvidia-smi line and, last, the result line ``{"ok": true, "device":
 {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -137,6 +161,43 @@ N_EVAL = 40
 TRAIN_STEPS = 600
 #: fasr_linear's declared tolerance (Intrinsic.tol)
 LINEAR_TOL = 0.08
+#: Table 2's inputs per row (benchmarks/table2_mapping_validation.py's default)
+TABLE2_N = 25
+#: lint_registry()'s findings as (severity, pass, target, subject) on the
+#: bundled targets; tests/test_torch_ilalint.py holds them equal to the
+#: port's CPU run and that to the JAX reference's
+LINT_EXPECTED = frozenset({
+    *(("warn", "hazard", "flexasr", f"fn_start/{r}")
+      for r in ("act_mode", "is_bias", "pe_b", "pe_w", "pe_wh")),
+    ("note", "hazard", "flexasr", "c_state,h_state"),
+    ("note", "hazard", "flexasr", "act_mode,base_aux,base_in,base_out,exp_bias_a,exp_bias_o,"
+     "exp_bias_w,is_bias,mode,num_aux,num_in,num_out,num_ts"),
+    ("note", "range", "flexasr", "adaptivfloat8"),
+    ("note", "hazard", "hlscnn", "in_c,in_h,in_w,k_h,k_w,out_k,wgt_bits"),
+    ("note", "hazard", "vecunit", "exp_a,exp_b,exp_o,mode,n_cols,n_rows"),
+})
+#: the acceptance campaign (tests/test_fault_campaign.py's fixture)
+CAMPAIGN = dict(
+    targets=("flexasr", "hlscnn", "vecunit"),
+    faults=("identity", "trunc_width", "sat_wrap", "round_floor", "drop_cfg", "stale_state"),
+    apps=("resmlp",), engine="pipelined", devices_per_target=2, ladder="escalate",
+    n_eval=24, train_steps=60, op_samples=1, vt2_n=2,
+)
+#: a crashing and a hanging mutant among two healthy ones
+#: (tests/test_campaign_shard.py), and the per-mutant deadline there
+CAMPAIGN_ROUGH = dict(
+    targets=("vecunit",), faults=("identity", "drop_cfg", "crash_inject", "hang_inject"),
+    apps=(), engine="compiled", devices_per_target=1, op_samples=1, vt2_n=2, seed=0,
+    stat_calib_seeds=0,
+)
+CAMPAIGN_TIMEOUT_S = 15.0
+#: the static-tier configuration (tests/test_campaign_static.py), run serially
+#: and sharded over spawned workers
+CAMPAIGN_STATIC = dict(
+    targets=("vecunit", "hlscnn"), faults=("identity", "decode_alias", "cmd_reorder", "drop_cfg"),
+    apps=(), engine="compiled", devices_per_target=1, ladder="escalate", op_samples=1,
+    stat_calib_seeds=0, seed=0,
+)
 
 
 def entry_resources(ptxas: str) -> dict:
@@ -169,6 +230,7 @@ def phase(label: str, **fields) -> None:
 
 def main() -> int:
     import copy
+    import dataclasses
 
     import numpy as np
     import torch
@@ -180,7 +242,8 @@ def main() -> int:
 
     from repro_torch import device as devmod
     from repro_torch.accel import flexasr as fa, numerics, vta
-    from repro_torch.core import apps, cosim, ir
+    from repro_torch.core import apps, campaign, cosim, ilalint, ir, validate
+    from repro_torch.core.ila import TARGETS
     from repro_torch.core.codegen import Executor
     from repro_torch.core.compile import compile_program
     from repro_torch.kernels import (
@@ -191,7 +254,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fx_gemm import fx_gemm
     from repro_torch.kernels.int8_gemm import int8_gemm
-    from repro_torch.launch import table4
+    from repro_torch.launch import table1, table2, table3, table4
     from repro_torch.launch.serve import generate
     from repro_torch.models import api as lm_api
 
@@ -204,18 +267,21 @@ def main() -> int:
     #: wgmma"), launches summed over every main-path run (read per path)
     path_launches = {name: 0 for name in list(wrappers) + [f"flash_attention:{d}"
                                                            for d in designs]}
+    #: the same launches per path: "table4" (phases 4-7), "vt3", "lm" (10-12)
+    launches_by_path = {name: {} for name in path_launches}
 
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
         kfa.reset_launches()
 
-    def read_counts():
+    def read_counts(path="table4"):
         counts = {name: w.launches for name, w in wrappers.items()}
         counts.update({f"flash_attention:{d}": n
                        for d, n in flash_attention.launches_by_design.items()})
         for name, n in counts.items():
             path_launches[name] += n
+            launches_by_path[name][path] = launches_by_path[name].get(path, 0) + n
         return counts
 
     # 1. device -------------------------------------------------------------
@@ -341,6 +407,8 @@ def main() -> int:
         "vta_fc1_16x128x64": i8_case(16, 128, 64),
         "vta_fc2_16x64x128": i8_case(16, 64, 128),
         "vta_head_1x10x64": i8_case(1, 10, 64),
+        # the VTA VT3 check's GEMM (validate.vt3_results)
+        "vt3_24x20x48": i8_case(24, 20, 48),
         # tests/test_kernels.py: (M, N, K)
         "test_1x3x7": i8_case(1, 3, 7),
         "test_128x128x128": i8_case(128, 128, 128),
@@ -593,6 +661,135 @@ def main() -> int:
             {"vta_gemm": 7, "vta_add": 4, "vta_relu": 2}, (("ila", "kernel"),),
             i8_per_point=7, params=trained)
 
+    # validate: VT1-VT3, Tables 1-3 on the card --------------------------------
+    secs = {}
+    t0 = time.perf_counter()
+    vt1 = {op: validate.vt1_check(op, device=dev) for op in validate.VT1_CASES}
+    vt2 = {f"{c.name}": validate.vt2_check(c, device=dev) for c in validate.vt2_cases()}
+    secs["vt1_vt2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t3 = table3.run(device=dev)
+    secs["table3"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t1 = table1.run(device=dev)
+    secs["table1"] = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    vt3 = validate.vt3_results(device=dev)
+    torch.cuda.synchronize()
+    secs["vt3"] = time.perf_counter() - t0
+    vt3_counts = read_counts("vt3")
+    t0 = time.perf_counter()
+    t2 = validate.validate_mappings(n_inputs=TABLE2_N, device=dev)
+    secs["table2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t2_cpu = validate.validate_mappings(n_inputs=TABLE2_N, device="cpu")
+    secs["table2_cpu"] = time.perf_counter() - t0
+    t2_dev = {}
+    for r, c in zip(t2, t2_cpu):
+        (tgt,) = [x for x in TARGETS.all() if x.display_name == r.accelerator]
+        tol = tgt.intrinsics[table2.TABLE2_INTRINSICS[(r.accelerator, r.operation)]].tol
+        t2_dev[f"{r.accelerator}/{r.operation}"] = (r.avg_err, c.avg_err, tol)
+    phase("validate", vt1=sum(vt1.values()), vt1_of=len(vt1), vt2=sum(vt2.values()),
+          vt2_of=len(vt2), table3="/".join(f"{'%dx%d' % r['dim']}:{r['ok']}:{r['count']}:"
+                                           f"{r['seconds']:.2f}s" for r in t3),
+          vt3={f"{k}:{c}": v for k, cs in vt3.items() for c, v in cs.items()},
+          vt3_af_gemm_launches=vt3_counts["af_gemm"],
+          vt3_int8_gemm_launches=vt3_counts["int8_gemm"],
+          **{f"{k}_s": f"{v:.2f}" for k, v in secs.items()})
+    for r in t1:
+        phase("table1", app=r["application"],
+              **{k: "%d/%d" % v for k, v in r["cells"].items()}, saturated=r["saturated"])
+    for key, (card, cpu, tol) in t2_dev.items():
+        phase("table2", row=key, n=TABLE2_N, avg_err_card=f"{card:.6f}",
+              avg_err_cpu=f"{cpu:.6f}", tol=tol)
+    report["validate"] = {
+        "vt1": vt1, "vt2": vt2, "vt3": vt3, "vt3_launches": vt3_counts, "table1": t1,
+        "table2": [dataclasses.asdict(r) for r in t2],
+        "table2_cpu": [dataclasses.asdict(r) for r in t2_cpu], "table3": t3, "seconds": secs}
+    vt3_ok = all(v == (True, 0.0) for cs in vt3.values() for v in cs.values()) \
+        and len([v for cs in vt3.values() for v in cs.values()]) == 2
+    t2_bad = {k: v for k, v in t2_dev.items() if abs(v[0] - v[1]) > v[2]}
+    if not (all(vt1.values()) and all(vt2.values()) and all(r["ok"] for r in t3)
+            and len(t3) == 8 and vt3_ok and not t2_bad
+            and [(r.accelerator, r.operation) for r in t2] == list(table2.TABLE2_INTRINSICS)):
+        raise AssertionError(f"validate: vt1 {vt1} vt2 {vt2} table3 {t3} vt3 {vt3} "
+                             f"table2 card vs cpu outside tol: {t2_bad}")
+    if vt3_counts["af_gemm"] <= 0 or vt3_counts["int8_gemm"] <= 0:
+        raise AssertionError(f"VT3 did not launch af_gemm and int8_gemm: {vt3_counts}")
+
+    # lint: the static verifier ----------------------------------------------
+    t0 = time.perf_counter()
+    findings = ilalint.lint_registry()
+    lint_s = time.perf_counter() - t0
+    got_lint = {(f.severity, f.pass_name, f.target, f.subject)
+                for fs in findings.values() for f in fs}
+    phase("lint", targets=len(findings), findings=sum(f[0] != "note" for f in got_lint),
+          notes=sum(f[0] == "note" for f in got_lint), equal_expected=got_lint == LINT_EXPECTED,
+          seconds=f"{lint_s:.2f}")
+    report["lint"] = {"findings": sorted(got_lint), "seconds": lint_s}
+    if got_lint != LINT_EXPECTED:
+        raise AssertionError(f"lint findings differ: extra {got_lint - LINT_EXPECTED}, "
+                             f"missing {LINT_EXPECTED - got_lint}")
+
+    # campaign: the fault-injection acceptance campaign, then sharded ------------
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    ck = out_dir / "chip_smoke_campaign.json"
+    ck.unlink(missing_ok=True)
+    accept = campaign.run_campaign(device=dev, checkpoint=str(ck), **CAMPAIGN)
+    idents = [m for m in accept.reports if m.fault == "identity"]
+    ident_clean = len(idents) == 3 and all(
+        m.detected_at is None and all(t.detected in (False, None) for t in m.tiers.values())
+        for m in idents)
+    nulls = accept.stat_calibration["null_shifts"]
+    app_only = [m.key for m in accept.reports if m.app_only]
+    digest = campaign.matrix_digest(accept)
+    phase("campaign", mutants=len(accept.reports), seconds=f"{accept.seconds:.2f}",
+          mutants_per_s=f"{accept.mutants_per_sec:.3f}", digest=digest[:16],
+          identity_clean=ident_clean, null_shifts=nulls, app_only=",".join(app_only),
+          first_detection=accept.summary()["first_detection_by_tier"])
+    print(campaign.format_matrix(accept), flush=True)
+    report["campaign"] = {"result": accept.to_json(), "digest": digest}
+    if not ident_clean or not nulls or any(v != 0.0 for vs in nulls.values() for v in vs) \
+            or "flexasr:sat_wrap@write_v" not in app_only:
+        raise AssertionError(f"campaign gates: identity clean {ident_clean}, null shifts "
+                             f"{nulls}, app-only escapes {app_only}")
+    t0 = time.perf_counter()
+    serial = campaign.run_campaign(device=dev, **CAMPAIGN_STATIC)
+    serial_s = time.perf_counter() - t0
+    ck = out_dir / "chip_smoke_campaign_sharded.json"
+    ck.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    sharded = campaign.run_campaign_sharded(workers=2, mutant_timeout=300.0,
+                                            checkpoint=str(ck), device=dev, **CAMPAIGN_STATIC)
+    sharded_s = time.perf_counter() - t0
+    same = campaign.matrix_digest(serial) == campaign.matrix_digest(sharded)
+    phase("campaign_sharded", mutants=len(sharded.reports), workers=2,
+          serial_s=f"{serial_s:.2f}", sharded_s=f"{sharded_s:.2f}",
+          digest=campaign.matrix_digest(sharded)[:16], digest_equal_serial=same,
+          outcomes="/".join(sorted({r.outcome for r in sharded.reports})))
+    report["campaign_sharded"] = {"serial_s": serial_s, "sharded_s": sharded_s,
+                                  "digest_equal": same}
+    if not same or any(r.outcome != "ok" for r in sharded.reports):
+        raise AssertionError("sharded campaign digest differs from the serial run's")
+    # a worker that raises and one that hangs holding its CUDA context: the
+    # parent terminates the hung worker at the deadline, and the campaign
+    # completes the other mutants on the remaining and respawned workers
+    t0 = time.perf_counter()
+    rough = campaign.run_campaign_sharded(workers=2, mutant_timeout=CAMPAIGN_TIMEOUT_S,
+                                          device=dev, **CAMPAIGN_ROUGH)
+    rough_s = time.perf_counter() - t0
+    outcome = {r.fault: (r.outcome, r.detected_at) for r in rough.reports}
+    phase("campaign_crash_hang", workers=2, mutant_timeout_s=CAMPAIGN_TIMEOUT_S,
+          seconds=f"{rough_s:.2f}",
+          outcomes=",".join(f"{k}:{o}:{d}" for k, (o, d) in outcome.items()))
+    report["campaign_crash_hang"] = {"outcomes": outcome, "seconds": rough_s}
+    if outcome != {"identity": ("ok", None), "drop_cfg": ("ok", outcome["drop_cfg"][1]),
+                   "crash_inject": ("crash", "crash"), "hang_inject": ("timeout", "timeout")} \
+            or outcome["drop_cfg"][1] is None:
+        raise AssertionError(f"crash/hang isolation on the card: {outcome}")
+
     # 8. timing --------------------------------------------------------------
     def graph_ms(fn, reps=20, iters=25):
         """Device time per call: ``reps`` calls captured in one CUDA graph,
@@ -669,7 +866,8 @@ def main() -> int:
     timed = [("af_gemm", n, lambda a=af_shapes[n]: af_gemm(*a, spec=spec),
               lambda a=af_shapes[n]: ref.af_gemm_ref(*a, spec), af_bound(af_shapes[n]), None)
              for n in ("fused_8x128x256x128", "fused_16x128x256x128", "resmlp_tok_64x16x16",
-                       "resmlp_fc1_16x128x64", "resmlp_fc2_16x64x128", "resmlp_head_1x10x64")]
+                       "resmlp_fc1_16x128x64", "resmlp_fc2_16x64x128", "resmlp_head_1x10x64",
+                       "test_16x32x64")]
     timed += [("fx_gemm", n, lambda a=fx_shapes[n]: fx_kernel(*a),
                lambda a=fx_shapes[n]: fx_plain(*a), fx_bound(fx_shapes[n][0]), None)
               for n in ("fused_8x144x32x800_w16", "fused_8x144x32x800_w8",
@@ -678,7 +876,7 @@ def main() -> int:
                lambda a=i8_shapes[n]: ref.int8_gemm_ref(*a), i8_bound(i8_shapes[n]),
                library(i8_shapes[n]))
               for n in ("vta_tok_64x16x16", "vta_fc1_16x128x64", "vta_fc2_16x64x128",
-                        "vta_head_1x10x64", "test_128x128x128")]
+                        "vta_head_1x10x64", "vt3_24x20x48", "test_128x128x128")]
 
     def flash_pairs(q, k, causal):
         """Score pairs the mask keeps (top-left causal), over all heads."""
@@ -842,7 +1040,7 @@ def main() -> int:
     zero_counts()
     stats = {}
     tokens = generate(cfg, model, prompt, LM_GEN, stats)
-    counts = read_counts()
+    counts = read_counts("lm")
     steps = stats["decode_steps"]
     serve = {
         "setup_s": lm_setup_s, "prefill_s": stats["prefill_s"],
@@ -901,7 +1099,7 @@ def main() -> int:
         dec.append(logits[:, 0])
     dec = torch.stack(dec, dim=1)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = read_counts("lm")
     rel = float((dec - full).abs().max() / full.abs().max())
     finite = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
     phase("lm_consistency", dtype="float32", positions=LM_GEN, max_rel_dev=f"{rel:.3e}",
@@ -923,7 +1121,7 @@ def main() -> int:
     card, _ = lm_api.prefill(scfg, card_model, sprompt.to(dev),
                              lm_api.init_cache(scfg, LM_BATCH, 96, torch.float32, dev))
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = read_counts("lm")
     cpu, _ = lm_api.prefill(scfg, cpu_model, sprompt,
                             lm_api.init_cache(scfg, LM_BATCH, 96, torch.float32, "cpu"))
     dev_abs = float((card.cpu() - cpu).abs().max())
@@ -971,12 +1169,11 @@ def main() -> int:
         })
         if kname in per_call:
             kernels[-1]["cuda_launches_per_call"] = per_call[kname]
+        kernels[-1]["launches_by_path"] = launches_by_path[count]
         if path_launches[count] <= 0:
             raise AssertionError(f"{kname} was never launched on the main path")
     report["kernels"] = kernels
     report["kernel_line"] = {k: v[1] for k, v in line.items()}
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)

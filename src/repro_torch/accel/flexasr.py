@@ -42,8 +42,7 @@ back to the global buffer.
 The FN_START functions are written once for a state with or without a
 leading batch axis (see ``repro_torch.core.ila``): each lifts what it reads
 to a batch of 1 or B, computes in batched form, and stores results back at
-the state's own batch size. The Table-2 mapping cases and the VT2 fragment
-pairs of the reference are not ported yet.
+the state's own batch size.
 """
 from __future__ import annotations
 
@@ -53,6 +52,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..core import ir
 from ..core.egraph import P, V as PV, Rewrite, shape_of
 from ..core.ila import (
     ILA, BulkWrite, Command, CompiledFragment, DataStream, FusedRunner,
@@ -63,7 +63,7 @@ from ..device import DeviceLike, resolve
 from . import numerics
 from .numerics import AdaptivFloatSpec
 from .target import (
-    AcceleratorTarget, CostModel, Intrinsic, SimJob, register_target,
+    AcceleratorTarget, CostModel, Intrinsic, SimJob, VT2Case, register_target,
 )
 
 V = 16            # interface lanes (128-bit MMIO word of 8-bit AF values)
@@ -1148,6 +1148,35 @@ def _sample_attention(r):
     ], {}
 
 
+def _vt2(dim_t, dim_d):
+    a = ir.Var("a", (dim_t, dim_d))
+    w = ir.Var("w", (dim_d, dim_d))
+    c = ir.Var("c", (dim_d,))
+    T = ir.Var("T", (dim_t, dim_d))
+    g = ir.Var("g", (dim_d,))
+    be = ir.Var("be", (dim_d,))
+    return [
+        VT2Case(
+            "linear",
+            ir.bias_add(ir.dense(a, w), c),
+            ir.call("fasr_linear", a, w, c),
+            {"a": (dim_t, dim_d), "w": (dim_d, dim_d), "c": (dim_d,)},
+        ),
+        VT2Case(
+            "maxpool",
+            ir.call("reduce_max", ir.call("windows", T, wh=2, ww=1, sh=2, sw=1), axis=(2, 3)),
+            ir.call("fasr_load", ir.call("fasr_maxpool", ir.call("fasr_store", T))),
+            {"T": (dim_t, dim_d)},
+        ),
+        VT2Case(
+            "layernorm",
+            ir.call("layer_norm", a, g, be, eps=1e-5),
+            ir.call("fasr_layernorm", a, g, be, eps=1e-5),
+            {"a": (dim_t, dim_d), "g": (dim_d,), "be": (dim_d,)},
+        ),
+    ]
+
+
 def _vt3_linear(n: int = 3, seed: int = 0, device: DeviceLike = None):
     """FlexASR ILA LinearLayer vs the af_gemm kernel on ``device``: both
     project onto the same AdaptivFloat lattice, so they must agree
@@ -1167,6 +1196,75 @@ def _vt3_linear(n: int = 3, seed: int = 0, device: DeviceLike = None):
         kern_out = kops.af_linear(*t).cpu().numpy()
         worst = max(worst, float(np.abs(ila_out - kern_out).max()))
     return worst <= 1e-6, worst
+
+
+def _mapping_cases(rng):
+    """Table-2 cases: each ``case(device=None)`` returns (reference,
+    simulated) as host arrays for one random input. The cases draw from the
+    shared ``rng`` in the reference's order, so both packages see the same
+    inputs."""
+
+    def sim(cmds, rd, device):
+        return rd(flexasr.simulate(cmds, device=resolve(device))).cpu().numpy()
+
+    def linear_case(device: DeviceLike = None):
+        x = rng.standard_normal((16, 64)).astype(np.float32)
+        w = (rng.standard_normal((64, 64)) * 0.1).astype(np.float32)
+        b = (rng.standard_normal((64,)) * 0.1).astype(np.float32)
+        cmds, rd = build_linear_fragment(x, w, b)
+        return x @ w.T + b, sim(cmds, rd, device)
+
+    def lstm_case(device: DeviceLike = None):
+        x = (rng.standard_normal((16, 32)) * 0.5).astype(np.float32)
+        wi = (rng.standard_normal((64, 32)) * 0.3).astype(np.float32)
+        wh = (rng.standard_normal((64, 16)) * 0.3).astype(np.float32)
+        b = (rng.standard_normal((64,)) * 0.1).astype(np.float32)
+        cmds, rd = build_lstm_fragment(x, wi, wh, b)
+        dev = resolve(device)
+        t = [torch.from_numpy(v).to(dev) for v in (x[:, None], wi, wh, b)]
+        ref = ir._lstm(*t)[:, 0].cpu().numpy()
+        return ref, sim(cmds, rd, dev)
+
+    def ln_case(device: DeviceLike = None):
+        x = rng.standard_normal((16, 64)).astype(np.float32)
+        g = rng.standard_normal((64,)).astype(np.float32)
+        be = (rng.standard_normal((64,)) * 0.1).astype(np.float32)
+        cmds, rd = build_layernorm_fragment(x, g, be)
+        mu = x.mean(-1, keepdims=True)
+        va = x.var(-1, keepdims=True)
+        return (x - mu) / np.sqrt(va + 1e-5) * g + be, sim(cmds, rd, device)
+
+    def maxpool_case(device: DeviceLike = None):
+        # device-representable inputs (written into the AF8 buffer), as the
+        # paper's 0.00% row implies
+        x = numerics.af_quantize(
+            torch.from_numpy(rng.standard_normal((16, 64)).astype(np.float32)), AF
+        ).numpy()
+        cmds, rd = build_pool_fragment(x, "max")
+        return x.reshape(8, 2, 64).max(1), sim(cmds, rd, device)
+
+    def meanpool_case(device: DeviceLike = None):
+        x = rng.standard_normal((16, 64)).astype(np.float32)
+        cmds, rd = build_pool_fragment(x, "mean")
+        return x.reshape(8, 2, 64).mean(1), sim(cmds, rd, device)
+
+    def attn_case(device: DeviceLike = None):
+        q = rng.standard_normal((8, 64)).astype(np.float32)
+        k = rng.standard_normal((16, 64)).astype(np.float32)
+        v = rng.standard_normal((16, 64)).astype(np.float32)
+        cmds, rd = build_attention_fragment(q, k, v)
+        dev = resolve(device)
+        ref = ir._attention(*(torch.from_numpy(a).to(dev) for a in (q, k, v)))
+        return ref.cpu().numpy(), sim(cmds, rd, dev)
+
+    return [
+        ("LinearLayer", linear_case),
+        ("LSTM", lstm_case),
+        ("LayerNorm", ln_case),
+        ("MaxPool", maxpool_case),
+        ("MeanPool", meanpool_case),
+        ("Attention", attn_case),
+    ]
 
 
 # --------------------------------------------------------------------------
@@ -1340,5 +1438,7 @@ TARGET.add_intrinsic(Intrinsic(
 TARGET.declare_fused(_fused_factory)
 TARGET.add_rewrites(_rewrites)
 TARGET.add_cost_model(COSTS)
+TARGET.add_vt2_cases(_vt2)
 TARGET.add_vt3_check("linear_ila_vs_af_gemm_kernel", _vt3_linear)
+TARGET.add_mapping_cases(_mapping_cases)
 register_target(TARGET)

@@ -271,21 +271,28 @@ class SimDevice:
         """This device's instance of ``frag`` (device-local setup state)."""
         if self.index == 0:
             return frag
-        # keyed by ILA identity as well as fragment key: fragment keys hash
-        # op/shapes/params only, so two ILAs with divergent semantics (the
-        # fault campaign's golden target vs its mutants, run through one
-        # long-lived Executor) can build same-key fragments. The cached
-        # clone pins frag.ila alive, so the id cannot be recycled while the
-        # entry is resident.
         return self.fragments.get(
-            (frag.key, id(frag.ila)),
+            self._key(frag),
             lambda: CompiledFragment(frag.ila, frag.key, frag.setup, dict(frag.meta)),
         )
+
+    @staticmethod
+    def _key(frag: CompiledFragment) -> Tuple:
+        """Device-local cache key: the fragment key, the ILA's identity and
+        the setup stream's identity. Fragment keys hash op/shapes/params
+        only, so two ILAs with divergent semantics (the fault campaign's
+        golden target vs its mutants, run through one long-lived Executor)
+        build same-key fragments; and a host-side fault shares the golden
+        ILA but loads a transformed setup stream, which must not be served
+        to (or be served from) the golden fragment's device-local copy. The
+        cached copy holds ``frag.ila`` and ``frag.setup``, so neither id can
+        be recycled while the entry is resident."""
+        return (frag.key, id(frag.ila), id(frag.setup))
 
     def is_cold(self, frag: CompiledFragment) -> bool:
         """True when resolving ``frag`` here would re-simulate its setup
         stream (device-local weight load not yet cached)."""
-        return self.index > 0 and (frag.key, id(frag.ila)) not in self.fragments
+        return self.index > 0 and self._key(frag) not in self.fragments
 
     def account(self, n_jobs: int, cycles: float) -> None:
         self.n_groups += 1

@@ -29,6 +29,10 @@ SLICE_MODULES = [
     "repro_torch.core.codegen",
     "repro_torch.core.apps",
     "repro_torch.core.cosim",
+    "repro_torch.core.validate",
+    "repro_torch.core.ilalint",
+    "repro_torch.core.faults",
+    "repro_torch.core.campaign",
     "repro_torch.accel.numerics",
     "repro_torch.accel.target",
     "repro_torch.accel.flexasr",
@@ -44,6 +48,11 @@ SLICE_MODULES = [
     "repro_torch.kernels.ops",
     "repro_torch.launch.table4",
     "repro_torch.launch.serve",
+    "repro_torch.launch.table1",
+    "repro_torch.launch.table2",
+    "repro_torch.launch.table3",
+    "repro_torch.launch.lint",
+    "repro_torch.launch.campaign",
     "repro_torch.models.config",
     "repro_torch.models.layers",
     "repro_torch.models.ssm",
@@ -136,6 +145,36 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
         "train_batch": lambda: api.make_train_batch(get_smoke_config("tinyllama_1_1b"), 1, 4,
                                                     np.random.default_rng(0)),
         "serve": lambda: serve.main(["--arch", "tinyllama-1.1b", "--smoke"]),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("launcher", ["table1", "lint"])
+def test_validation_launchers_without_device_raise_when_cuda_absent(launcher, monkeypatch,
+                                                                     capsys):
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.launch.{launcher}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([])
+    assert "==" not in capsys.readouterr().out, "ran before resolving the device"
+
+
+@pytest.mark.parametrize("entry", ["vt1", "vt3", "table2", "table3", "campaign"])
+def test_validation_entry_points_default_to_cuda(entry, monkeypatch):
+    from repro_torch.core import campaign, validate
+    from repro_torch.launch import table3
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "vt1": lambda: validate.vt1_check("dense", n=1),
+        "vt3": lambda: validate.vt3_results(),
+        "table2": lambda: validate.validate_mappings(n_inputs=1),
+        "table3": lambda: table3.run(n=1),
+        "campaign": lambda: campaign.run_campaign(targets=("vecunit",), faults=("identity",),
+                                                  apps=()),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
