@@ -113,19 +113,57 @@ without one). Phases, one line each:
              the TinyLlama smoke config on identical seeded fp32 weights on
              the card (kernel) and on the CPU (plain version): last-position
              prefill logits within rtol = atol = 1e-4
+13. cosim_serve
+             ``core.serving.CosimServer`` under ``launch.serve --cosim``'s
+             default load (16 requests x batch 4, concurrency 4, queue depth
+             16, coalescing up to 16 samples, arrival asap) for ResMLP at
+             ``add_app``'s defaults and ResNet-20, on the pipelined and the
+             fused engine: QPS and p50/p95/p99 latency, and the device's
+             busy share over one more load on the fused engine (torch.profiler).
+             Gates: 16/16 served,
+             coalesced_max > 1, every output bit-identical to a
+             coalesce=False, overlap=False server on the same request ids,
+             fused bit-identical to pipelined, a burst of queue depth + 8
+             rejects the 8 with queue_full and close(drain=True) serves the
+             rest and leaves nothing queued, af_gemm and fx_gemm launched on
+             the path ("serve_cosim")
+14. lm_train TinyLlama-1.1B at full width (nothing cut), seeded bf16 weights,
+             AdamW, ``SyntheticLM`` batches of 4 x 1024 tokens, 6 steps of
+             ``launch.steps.make_train_step``: s/step, tokens/s, peak
+             memory. Gates: finite loss and grad norm every step, a finite
+             gradient for every parameter at step 0, 22 + 22 flash_attention
+             launches per step (forward and the remat recompute in backward),
+             all on wgmma. Then the smoke config on identical weights: the
+             kernel-forward gradient against the all-plain one, and the card
+             against the CPU, per leaf within TRAIN_GRAD_BF16 in bf16 (wgmma)
+             and TRAIN_GRAD_FP32 in fp32 (wgmma3); the bf16 kernel-forward
+             gradient against the fp32 all-plain one on the upcast weights,
+             per leaf in relative L2 within TRAIN_GRAD_BF16_L2, and wrong
+             forwards in the kernel's place (non-causal, scale x1.1) beyond it
+15. trainer_restart
+             ``runtime.trainer.Trainer`` on the card with TestTrainer's
+             configuration (SmolLM smoke, 4 x 32 tokens, checkpoints every 10
+             steps under chiprun_out/trainer_ckpt): a WorkerFailure at step
+             15 restarts once from the step-9 checkpoint (step 10 run twice,
+             step 0 once), the last loss below the first; a sleep at step 20
+             (30 x the median step, 1-6 s) flagged as a straggler
 
 Every count of kernel launches is set to 0 just before a path runs and read
 just after it. Then one JSON line with an entry per kernel and per design of
 flash_attention (``{"kernels": [...]}``; each entry also gives its CUDA
 launches per call, its time above the launch floor and its launches per
-path: "table4" for phases 4-7, "vt3", "lm" for phases 10-12), the
-card's nvidia-smi line and, last, the result line ``{"ok": true, "device":
-{...}}``. Details go to ``chiprun_out/chip_smoke.json``.
+path: "table4" for phases 4-7, "vt3", "lm" for phases 10-12,
+"serve_cosim" for 13 and "train" for 14-15), the card's nvidia-smi line
+and, last, the result line ``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -156,6 +194,26 @@ FLASH_BF16_STEP = 2.0 ** -7
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "tinyllama_1_1b", 4, 1024, 32
 #: fp32 forward vs prefill + decode (tests/test_models.py:60); card vs CPU
 LM_CONSISTENCY_TOL, LM_CPU_TOL = 2e-2, 1e-4
+
+#: co-sim serving: ResMLP (add_app's default size, 4 layers) and ResNet-20
+#: under the serve launcher's default load (16 requests x batch 4,
+#: concurrency 4, queue depth 16, coalescing up to 16 samples, arrival asap)
+SERVE_APPS = ("resmlp", "resnet-20")
+SERVE_REQUESTS, SERVE_BATCH, SERVE_CONCURRENCY = 16, 4, 4
+SERVE_QUEUE_DEPTH, SERVE_MAX_BATCH = 16, 16
+#: LM training: TinyLlama-1.1B at full width, AdamW, 4 x 1024 tokens a step
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS_LM, TRAIN_LR = 4, 1024, 6, 3e-4
+#: per gradient leaf, max |kernel - plain| (and |card - CPU|) over max |plain|:
+#: bf16 2^-4 (the kernel keeps P in fp32 where the plain attention rounds it
+#: to bf16; 1.8e-2 measured on the CPU at the smoke config), fp32 1e-4
+TRAIN_GRAD_BF16, TRAIN_GRAD_FP32 = 2.0 ** -4, 1e-4
+#: per gradient leaf, ||bf16 kernel-forward - fp32 all-plain|| / ||fp32||
+#: on the same (upcast) weights, every entry of a leaf counting: bf16 alone
+#: gave at most 2.2e-2 on the CPU at the smoke config, a forward with the
+#: scale 10% off at least 1.9e-1 (a non-causal one 2.5); 2^-4 lies between.
+#: The run holds such wrong forwards (TRAIN_GRAD_WRONG) beyond it as well.
+TRAIN_GRAD_BF16_L2 = 2.0 ** -4
+TRAIN_GRAD_WRONG = ("non_causal", "scale_x1.1")
 
 N_EVAL = 40
 TRAIN_STEPS = 600
@@ -228,9 +286,420 @@ def phase(label: str, **fields) -> None:
     print(f"[{label}] {body}", flush=True)
 
 
+def device_busy(label: str, fn):
+    """(wall s, device busy s, top kernels) of one call of ``fn``
+    (torch.profiler's CUDA activity; fails if it saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e6
+    if busy <= 0:
+        raise AssertionError(f"{label}: the profiler saw no device activity")
+    return wall, busy, rows[:15]
+
+
+def cosim_serve_phase(dev, zero_counts, read_counts, launches_by_path: dict,
+                      report: dict) -> None:
+    """Phase 13: CosimServer under the serve launcher's default load."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.serving import REJECT_QUEUE_FULL, CosimServer, percentiles_ms
+    from repro_torch.launch.serve import drive_load
+
+    def serve_load(server, app):
+        """The serve launcher's load generator at its defaults (arrival asap)."""
+        return drive_load(server, app, SERVE_REQUESTS, SERVE_BATCH, SERVE_CONCURRENCY)
+
+    t_phase = time.perf_counter()
+    serving = {}
+    served_outs = {}
+    compiled = {}
+    for app in SERVE_APPS:
+        for engine in ("pipelined", "fused"):
+            t0 = time.perf_counter()
+            server = CosimServer(engine=engine, device=dev, queue_depth=SERVE_QUEUE_DEPTH,
+                                 max_batch=SERVE_MAX_BATCH,
+                                 pipeline_chunk=max(1, min(8, -(-SERVE_BATCH // 2))))
+            if app in compiled:
+                server.add_program(app, *compiled[app])
+            else:
+                a = server.add_app(app)   # add_app's defaults: the application's full size
+                compiled[app] = (a.program, a.params)
+            server.start(warmup=1, warm_batch=SERVE_BATCH)
+            torch.cuda.synchronize()
+            start_s = time.perf_counter() - t0
+            zero_counts()
+            handles, load_s = serve_load(server, app)
+            launched = read_counts("serve_cosim")
+            summ = server.summary()
+            stages = server.executor.pipeline_summary()
+            # where the time goes, on the fused engine only: the same load
+            # once more (new request ids) under the profiler, not counted
+            prof = {}
+            if engine == "fused":
+                t0 = time.perf_counter()
+                wall, busy, top = device_busy(f"cosim_serve {app}/{engine}",
+                                              lambda: serve_load(server, app))
+                prof = {"profiled_wall_s": wall, "device_busy_s": busy,
+                        "busy_share": busy / wall, "top_kernels": top,
+                        "profile_s": time.perf_counter() - t0}   # with the trace's parsing
+            server.close(drain=True)
+            zero_counts()
+            done = [h for h in handles if h.status == "done"]
+            pct = percentiles_ms([h.latency_s for h in done])
+            # the same request ids, served one at a time through a draining
+            # pipeline (coalesce=False, overlap=False) on the same engine
+            serial = CosimServer(engine=engine, device=dev, queue_depth=SERVE_QUEUE_DEPTH,
+                                 max_batch=SERVE_MAX_BATCH, coalesce=False, overlap=False,
+                                 pipeline_chunk=max(1, min(8, -(-SERVE_BATCH // 2))))
+            serial.add_program(app, *compiled[app])
+            serial.start(warmup=0)
+            ref_handles, serial_s = serve_load(serial, app)
+            serial.close(drain=True)
+            zero_counts()   # the serial reference's launches are a check's
+            outs = {h.id: h.result() for h in done}
+            same_serial = len(done) == SERVE_REQUESTS and all(
+                len(outs[r.id]) == SERVE_BATCH
+                and all(np.array_equal(a, b) for a, b in zip(outs[r.id], r.result()))
+                for r in ref_handles)
+            finite = all(np.isfinite(o).all() for os_ in outs.values() for o in os_)
+            served_outs[(app, engine)] = outs
+            row = {"served": len(done), "rejected": summ["rejected"],
+                   "coalesced_max": summ["coalesced_max"], "batches": summ["batches"],
+                   "qps": len(done) / load_s, "samples_per_s": len(done) * SERVE_BATCH / load_s,
+                   "load_s": load_s, "start_s": start_s, **pct,
+                   "launches": launched, "equal_serial": same_serial, "finite": finite,
+                   "serial_load_s": serial_s,
+                   "stages_s": stages, **prof}
+            serving[f"{app}:{engine}"] = row
+            phase("cosim_serve", app=app, engine=engine,
+                  served=f"{len(done)}/{SERVE_REQUESTS}", qps=f"{row['qps']:.2f}",
+                  samples_per_s=f"{row['samples_per_s']:.1f}",
+                  p50_ms=f"{pct['p50_ms']:.2f}", p95_ms=f"{pct['p95_ms']:.2f}",
+                  p99_ms=f"{pct['p99_ms']:.2f}", coalesced_max=summ["coalesced_max"],
+                  batches=summ["batches"], start_s=f"{start_s:.2f}",
+                  pack_s=f"{stages['pack_s']:.3f}", dispatch_s=f"{stages['dispatch_s']:.3f}",
+                  readback_s=f"{stages['readback_s']:.3f}",
+                  busy_share=f"{prof['busy_share']:.4f}" if prof else "not_profiled",
+                  profile_s=f"{prof['profile_s']:.2f}" if prof else 0,
+                  serial_load_s=f"{serial_s:.2f}",
+                  af_gemm=launched["af_gemm"], fx_gemm=launched["fx_gemm"],
+                  equal_serial=same_serial, finite=finite)
+            if len(done) != SERVE_REQUESTS or summ["coalesced_max"] <= 1 or not same_serial \
+                    or not finite:
+                raise AssertionError(f"cosim_serve {app}/{engine}: {row}")
+        fused, piped = served_outs[(app, "fused")], served_outs[(app, "pipelined")]
+        same_engines = sorted(fused) == sorted(piped) and all(
+            np.array_equal(a, b) for r in fused for a, b in zip(fused[r], piped[r]))
+        serving[f"{app}:fused==pipelined"] = same_engines
+        if not same_engines:
+            raise AssertionError(f"cosim_serve {app}: fused outputs differ from pipelined")
+    # admission control and shutdown: a burst of queue_depth + 8 before start
+    burst = CosimServer(engine="pipelined", device=dev, queue_depth=SERVE_QUEUE_DEPTH,
+                        max_batch=SERVE_MAX_BATCH)
+    burst.add_program(SERVE_APPS[0], *compiled[SERVE_APPS[0]])
+    handles = [burst.submit(SERVE_APPS[0], batch=1) for _ in range(SERVE_QUEUE_DEPTH + 8)]
+    burst.start(warmup=0)
+    burst.close(drain=True)
+    zero_counts()
+    rejected = [h.reject_reason for h in handles if h.rejected]
+    queued_after = burst.summary()["queued"]
+    all_done = all(h.status == "done" for h in handles if not h.rejected)
+    by_path = {k: v.get("serve_cosim", 0) for k, v in launches_by_path.items()}
+    phase("cosim_serve_admission", burst=SERVE_QUEUE_DEPTH + 8, rejected=len(rejected),
+          reasons="/".join(sorted(set(rejected))), accepted_served=all_done,
+          queued_after_close=queued_after, fused_equal_pipelined=all(
+              serving[f"{a}:fused==pipelined"] for a in SERVE_APPS),
+          af_gemm_launches=by_path["af_gemm"], fx_gemm_launches=by_path["fx_gemm"],
+          phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    serving["admission"] = {"rejected": len(rejected), "reasons": rejected,
+                            "accepted_served": all_done, "queued_after_close": queued_after}
+    report["cosim_serve"] = serving
+    if rejected != [REJECT_QUEUE_FULL] * 8 or not all_done or queued_after != 0:
+        raise AssertionError(f"cosim_serve admission: {serving['admission']}")
+    if by_path["af_gemm"] <= 0 or by_path["fx_gemm"] <= 0:
+        raise AssertionError(f"serve_cosim launched af_gemm {by_path['af_gemm']} and fx_gemm "
+                             f"{by_path['fx_gemm']} times; both must run")
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Training attention in plain ops, forward and backward (the all-plain
+    gradient a check compares the kernel-forward one with)."""
+    from repro_torch.models import layers
+
+    saved = layers.FlashAttention.apply
+    layers.FlashAttention.apply = lambda q, k, v, c, s: layers._attend(q, k, v, c, s)
+    try:
+        yield
+    finally:
+        layers.FlashAttention.apply = saved
+
+
+def bf16_grad_vs_fp32(dev, scfg, model, grads, batch) -> dict:
+    """``grads``, the bf16 kernel-forward gradient of ``model`` on ``batch``,
+    against the fp32 all-plain gradient on the same weights, upcast: the
+    worst leaf's relative L2 error and its name, so that a leaf whose typical
+    entry lies far below its largest (the embedding) counts whole. Wrong
+    forwards in the kernel's place (TRAIN_GRAD_WRONG) must land beyond
+    TRAIN_GRAD_BF16_L2, the kernel within it."""
+    import copy
+
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import layers
+    from repro_torch.optim.optimizers import tree_leaves
+
+    names = [n for n, _ in model.named_parameters()]
+    with plain_attention():
+        _, want = steps.value_and_grad(scfg, copy.deepcopy(model).float(),
+                                       steps.batch_to(batch, dev))
+    want = tree_leaves(want)
+
+    def worst_l2(got):
+        errs = [float((a.float() - b).norm() / b.norm().clamp(min=1e-30))
+                for a, b in zip(tree_leaves(got), want)]
+        i = max(range(len(errs)), key=errs.__getitem__)
+        return errs[i], names[i]
+
+    wrong = {"non_causal": lambda q, k, v, c, s: layers._attend(q, k, v, False, s),
+             "scale_x1.1": lambda q, k, v, c, s: layers._attend(q, k, v, c, 1.1 * s)}
+    worst = {"kernel": worst_l2(grads)}
+    for name in TRAIN_GRAD_WRONG:
+        saved = layers._flash
+        layers._flash = wrong[name]
+        try:
+            worst[name] = worst_l2(steps.value_and_grad(scfg, model,
+                                                        steps.batch_to(batch, dev))[1])
+        finally:
+            layers._flash = saved
+    phase("lm_train_grad_check", arch=scfg.name, dtype="bf16_vs_fp32", metric="rel_l2",
+          tol=TRAIN_GRAD_BF16_L2,
+          **{k.replace(".", "_"): f"{e:.3e}@{leaf}" for k, (e, leaf) in worst.items()})
+    if worst["kernel"][0] > TRAIN_GRAD_BF16_L2 or any(
+            worst[n][0] <= TRAIN_GRAD_BF16_L2 for n in TRAIN_GRAD_WRONG):
+        raise AssertionError(f"lm_train gradient check bf16 vs fp32: {worst}")
+    return {"tol": TRAIN_GRAD_BF16_L2, **worst}
+
+
+def lm_train_phase(dev, zero_counts, read_counts, report: dict, cfg, scfg) -> None:
+    """Phase 14: ``cfg`` trained through make_train_step; the gradient checks
+    at ``scfg``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch import optim as roptim
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.models import api as lm_api
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.optimizers import tree_leaves
+
+    designs = sorted(flash_attention.launches_by_design)
+    def grads_close(got, want, rel):
+        """The worst leaf's max |got - want| over its max |want|, and whether
+        every leaf is within ``rel``."""
+        worst = 0.0
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            a, b = a.detach().float().cpu(), b.detach().float().cpu()
+            worst = max(worst, float((a - b).abs().max() / b.abs().max().clamp(min=1e-30)))
+        return worst, worst <= rel
+
+    t_phase = time.perf_counter()
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    model = lm_api.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt_state = roptim.make_optimizer("adamw").init(model.tree())
+    step_fn = train_steps.make_train_step(cfg, shape, optimizer="adamw", lr=TRAIN_LR,
+                                          warmup=2, total_steps=TRAIN_STEPS_LM)
+    data = SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    torch.cuda.synchronize()
+    train_setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    # every leaf's gradient at step 0: present (value_and_grad raises if not)
+    # and finite
+    zero_counts()
+    loss0, grads = train_steps.value_and_grad(cfg, model, train_steps.batch_to(
+        data.batch_at(0), dev))
+    torch.cuda.synchronize()
+    grad_counts = read_counts("train")
+    leaves = tree_leaves(grads)
+    n_params = sum(1 for _ in model.parameters())
+    grads_finite = len(leaves) == n_params and all(bool(torch.isfinite(g).all())
+                                                   for g in leaves)
+    del grads, leaves
+    losses, norms, secs, per_step = [], [], [], []
+    zero_counts()
+    for step in range(TRAIN_STEPS_LM):
+        before = flash_attention.launches_by_design["wgmma"]
+        t0 = time.perf_counter()
+        batch = train_steps.batch_to(data.batch_at(step), dev)
+        model, opt_state, metrics = step_fn(model, opt_state, batch, step)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(flash_attention.launches_by_design["wgmma"] - before)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launched = read_counts("train")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s_step = float(np.median(secs[1:]))
+    # where the time goes: one more step under the profiler, not counted
+    state = {}
+
+    def profiled_step():
+        state["out"] = step_fn(model, opt_state, train_steps.batch_to(
+            data.batch_at(TRAIN_STEPS_LM), dev), TRAIN_STEPS_LM)
+
+    wall, busy, top = device_busy("lm_train", profiled_step)
+    model, opt_state, _ = state.pop("out")
+    zero_counts()
+    train = {"setup_s": train_setup_s, "step_s": secs, "s_per_step": s_step,
+             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / s_step, "peak_mem_gb": peak_gb,
+             "losses": losses, "grad_norms": norms, "loss0": float(loss0),
+             "grad_leaves": n_params, "grads_finite": grads_finite,
+             "grad_check_launches": grad_counts, "launches": launched,
+             "wgmma_per_step": per_step, "profiled_step_s": wall, "device_busy_s": busy,
+             "busy_share": busy / wall, "top_kernels": top}
+    finite = all(np.isfinite(losses)) and all(np.isfinite(norms))
+    phase("lm_train", arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS_LM,
+          optimizer="adamw", s_per_step=f"{s_step:.4f}", first_step_s=f"{secs[0]:.3f}",
+          tokens_per_s=f"{train['tokens_per_s']:.0f}", peak_mem_gb=f"{peak_gb:.2f}",
+          loss="/".join(f"{x:.4f}" for x in losses),
+          grad_norm="/".join(f"{x:.3f}" for x in norms),
+          grad_leaves=f"{n_params}/{n_params}" if grads_finite else "missing_or_nonfinite",
+          wgmma_per_step="/".join(map(str, per_step)),
+          grad_check_wgmma=grad_counts["flash_attention:wgmma"], finite=finite,
+          busy_share=f"{busy / wall:.4f}",
+          top="/".join(f"{kernel_label(k)}={us / 1e3:.1f}ms" for k, us, _ in top[:5]))
+    report["lm_train"] = train
+    others = {k: v for k, v in launched.items() if not k.startswith("flash_attention")}
+    want_per_step = 2 * cfg.n_layers   # forward + the remat recompute in backward
+    if not finite or not grads_finite or per_step != [want_per_step] * TRAIN_STEPS_LM \
+            or launched["flash_attention"] != launched["flash_attention:wgmma"] \
+            or launched["flash_attention"] != want_per_step * TRAIN_STEPS_LM \
+            or grad_counts["flash_attention:wgmma"] != want_per_step or any(others.values()):
+        raise AssertionError(f"lm_train: finite {finite}, grads {grads_finite}, launches "
+                             f"{launched} per step {per_step} (want {want_per_step} wgmma)")
+    del model, opt_state, step_fn
+
+    # the kernel-forward gradient against the all-plain one, and the card
+    # against the CPU, at the smoke config on identical weights
+    sbatch = SyntheticLM(scfg.vocab, TRAIN_BATCH, 96, seed=1).batch_at(0)
+    grad_check = {}
+    for tag, dtype, rel in (("bf16", torch.bfloat16, TRAIN_GRAD_BF16),
+                            ("fp32", torch.float32, TRAIN_GRAD_FP32)):
+        cpu_model = lm_api.init_params(scfg, torch.Generator().manual_seed(0), dtype=dtype)
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        before = dict(flash_attention.launches_by_design)
+        l_card, g_card = train_steps.value_and_grad(scfg, card_model,
+                                                    train_steps.batch_to(sbatch, dev))
+        torch.cuda.synchronize()
+        design = {d: flash_attention.launches_by_design[d] - before[d] for d in designs}
+        with plain_attention():
+            l_plain, g_plain = train_steps.value_and_grad(scfg, card_model,
+                                                          train_steps.batch_to(sbatch, dev))
+        l_cpu, g_cpu = train_steps.value_and_grad(scfg, cpu_model,
+                                                  train_steps.batch_to(sbatch, "cpu"))
+        vs_plain, ok_plain = grads_close(g_card, g_plain, rel)
+        vs_cpu, ok_cpu = grads_close(g_card, g_cpu, rel)
+        grad_check[tag] = {"vs_plain": vs_plain, "vs_cpu": vs_cpu, "tol": rel,
+                           "launches": design, "loss": [float(l_card), float(l_plain),
+                                                        float(l_cpu)]}
+        phase("lm_train_grad_check", arch=scfg.name, dtype=tag, tol=rel,
+              kernel_vs_plain=f"{vs_plain:.3e}", card_vs_cpu=f"{vs_cpu:.3e}",
+              launches="/".join(f"{d}:{n}" for d, n in design.items()))
+        if not (ok_plain and ok_cpu) or design[kfa.DESIGNS[dtype]] != 2 * scfg.n_layers:
+            raise AssertionError(f"lm_train gradient check {tag}: {grad_check[tag]}")
+        if dtype == torch.bfloat16:
+            bf16_model, g_bf16 = card_model, g_card
+    grad_check["bf16_vs_fp32_l2"] = bf16_grad_vs_fp32(dev, scfg, bf16_model, g_bf16, sbatch)
+    zero_counts()
+    report["lm_train_grad_check"] = grad_check
+    phase("lm_train_done", phase_s=f"{time.perf_counter() - t_phase:.2f}")
+
+
+def trainer_phase(dev, zero_counts, read_counts, report: dict, out_dir: Path) -> None:
+    """Phase 15: the fault-tolerant trainer with TestTrainer's configuration."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig, WorkerFailure
+
+    ckpt_root = out_dir / "trainer_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    tcfg = get_smoke_config("smollm_360m")
+
+    def trainer(name, max_steps, hook):
+        return Trainer(tcfg, ShapeConfig("t", 32, 4, "train"), SyntheticLM(tcfg.vocab, 4, 32,
+                                                                           seed=1),
+                       TrainerConfig(ckpt_dir=str(ckpt_root / name), ckpt_every=10,
+                                     max_steps=max_steps, lr=5e-3, warmup=5),
+                       failure_hook=hook, device=dev)
+
+    fails = {"n": 0}
+
+    def fail_once(step):
+        if step == 15 and fails["n"] == 0:
+            fails["n"] += 1
+            raise WorkerFailure("injected")
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    t0 = time.perf_counter()
+    run = trainer("restart", 30, fail_once)
+    run.run()
+    restart_s = time.perf_counter() - t0
+    restart_counts = read_counts("train")
+    steps_seen = [m["step"] for m in run.metrics if "step" in m]
+    tlosses = [m["loss"] for m in run.metrics if "loss" in m]
+    restarts = [m for m in run.metrics if m.get("event") == "restart"]
+    dts = sorted(m["dt"] for m in run.metrics if "dt" in m)
+    # a sleep far above 3x the EWMA of this card's steps
+    sleep_s = min(6.0, max(1.0, 30 * dts[len(dts) // 2]))
+    slow = {"done": False}
+
+    def sleep_once(step):
+        if step == 20 and not slow["done"]:
+            slow["done"] = True
+            time.sleep(sleep_s)
+
+    zero_counts()
+    strag = trainer("straggler", 25, sleep_once)
+    strag.run()
+    strag_counts = read_counts("train")
+    ok_restart = (len(restarts) == 1 and steps_seen.count(10) == 2 and steps_seen.count(0) == 1
+                  and tlosses[-1] < tlosses[0] and run.ckpt.all_steps() == [9, 19, 29])
+    phase("trainer_restart", arch=tcfg.name, steps=len(steps_seen), restarts=len(restarts),
+          step10_runs=steps_seen.count(10), step0_runs=steps_seen.count(0),
+          loss=f"{tlosses[0]:.4f}->{tlosses[-1]:.4f}", checkpoints=run.ckpt.all_steps(),
+          median_step_s=f"{dts[len(dts) // 2]:.4f}", seconds=f"{restart_s:.2f}",
+          straggler_sleep_s=f"{sleep_s:.2f}", stragglers=strag.straggler_steps,
+          wgmma_launches=restart_counts["flash_attention:wgmma"]
+          + strag_counts["flash_attention:wgmma"], phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    report["trainer_restart"] = {"steps": steps_seen, "losses": tlosses,
+                                 "checkpoints": run.ckpt.all_steps(), "seconds": restart_s,
+                                 "median_step_s": dts[len(dts) // 2], "sleep_s": sleep_s,
+                                 "stragglers": strag.straggler_steps,
+                                 "launches": [restart_counts, strag_counts]}
+    if not ok_restart or 20 not in strag.straggler_steps:
+        raise AssertionError(f"trainer_restart: {report['trainer_restart']}")
+
+
 def main() -> int:
     import copy
-    import dataclasses
 
     import numpy as np
     import torch
@@ -258,6 +727,7 @@ def main() -> int:
     from repro_torch.launch.serve import generate
     from repro_torch.models import api as lm_api
 
+    t_start = time.perf_counter()
     report = {}
     dev = devmod.resolve("cuda")
     wrappers = {"af_gemm": af_gemm, "fx_gemm": fx_gemm, "int8_gemm": int8_gemm,
@@ -267,7 +737,8 @@ def main() -> int:
     #: wgmma"), launches summed over every main-path run (read per path)
     path_launches = {name: 0 for name in list(wrappers) + [f"flash_attention:{d}"
                                                            for d in designs]}
-    #: the same launches per path: "table4" (phases 4-7), "vt3", "lm" (10-12)
+    #: the same launches per path: "table4" (phases 4-7), "vt3", "lm" (10-12),
+    #: "serve_cosim" (13), "train" (14-15)
     launches_by_path = {name: {} for name in path_launches}
 
     def zero_counts():
@@ -1001,20 +1472,6 @@ def main() -> int:
     report["launch_floor_ms"] = floor_ms
 
     # 9. where the time goes: device busy share over one fused minibatch ------
-    def device_busy(label, fn):
-        """(wall s, device busy s, top kernels) of one call of ``fn``."""
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                       if e.self_device_time_total > 0), key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows) / 1e6
-        if busy <= 0:
-            raise AssertionError(f"{label}: the profiler saw no device activity")
-        return wall, busy, rows[:15]
-
     def busy_share(label, program, params_, X_, y_, ex):
         wall, busy, top = device_busy(label, lambda: cosim.eval_classification(
             program, params_, X_, y_, ex, 16))
@@ -1132,6 +1589,12 @@ def main() -> int:
     if not close or counts["flash_attention"] != scfg.n_layers:
         raise AssertionError(f"lm_cpu_parity: card vs CPU {dev_abs}, launches {counts}")
 
+    # 13-15. co-simulation serving, LM training, the fault-tolerant trainer
+    cosim_serve_phase(dev, zero_counts, read_counts, launches_by_path, report)
+    lm_train_phase(dev, zero_counts, read_counts, report, get_config(LM_ARCH),
+                   get_smoke_config(LM_ARCH))
+    trainer_phase(dev, zero_counts, read_counts, report, out_dir)
+
     # the kernel line, one entry per CUDA source and per design of
     # flash_attention (bf16 and fp32, both from flash_attention_sm90.cu): the
     # shape each one's main path launched most
@@ -1174,6 +1637,8 @@ def main() -> int:
             raise AssertionError(f"{kname} was never launched on the main path")
     report["kernels"] = kernels
     report["kernel_line"] = {k: v[1] for k, v in line.items()}
+    report["seconds"] = time.perf_counter() - t_start
+    phase("total", seconds=f"{report['seconds']:.1f}")
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)

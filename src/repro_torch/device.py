@@ -42,6 +42,12 @@ def resolve(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def synchronize(dev: torch.device) -> None:
+    """Wait for the work queued on ``dev`` (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def tf32_off() -> bool:
     """True when neither matmul nor cuDNN may use TF32."""
     return not (

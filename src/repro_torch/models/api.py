@@ -1,8 +1,8 @@
 """Model facade: family dispatch, smoke batches, and the reference's weights.
 
-Port of ``repro/models/api.py``. The ``*_input_specs`` functions, which give
-``jax.ShapeDtypeStruct`` stand-ins to the dry-run, wait with
-``launch/dryrun.py``; ``loss_fn`` waits for the training slice.
+Port of ``repro/models/api.py``. The ``*_input_specs`` functions and
+``cell_is_supported``, which serve the reference's dry-run, are not ported
+(ROADMAP.md: the dry-run counts XLA HLO and has no counterpart on one card).
 :func:`params_from_numpy` is new: it turns the reference's parameter
 pytree into the port's model, so tests run both packages on identical
 weights.
@@ -33,6 +33,12 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16) -> 
     return lm.init_params(cfg, gen, dtype)
 
 
+def loss_fn(cfg: ArchConfig, params, batch, remat: bool = True):
+    if cfg.family == "audio":
+        return whisper.loss_fn(cfg, params, batch, remat)
+    return lm.loss_fn(cfg, params, batch, remat)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
     if cfg.family == "audio":
         return whisper.init_cache(cfg, batch, max_len, AUDIO_ENC_FRAMES, dtype, device)
@@ -51,10 +57,10 @@ def prefill(cfg: ArchConfig, params, tokens_or_frames, cache):
     return lm.prefill(cfg, params, tokens_or_frames, cache)
 
 
-def forward(cfg: ArchConfig, params, tokens):
+def forward(cfg: ArchConfig, params, tokens, **kw):
     if cfg.family == "audio":
-        raise ValueError("audio family uses encode/decode_step")
-    return lm.forward(cfg, params, tokens)
+        raise ValueError("audio family uses loss_fn/encode/decode_train")
+    return lm.forward(cfg, params, tokens, **kw)
 
 
 def make_train_batch(cfg: ArchConfig, batch: int, seq: int, rng: np.random.Generator,

@@ -10,7 +10,14 @@ Where attention goes:
   and cross-attention) calls the hand-written ``flash_attention`` kernel for
   every length. The reference switches between ``_sdpa_dense`` and
   ``_sdpa_chunked`` at ``CHUNK_THRESHOLD``; both compute the kernel's
-  function, so there is no switch here.
+  function, so the forward has no switch.
+* :func:`sdpa` goes through :class:`FlashAttention`: its forward is the
+  kernel (under no_grad it records no graph), its backward recomputes
+  attention from the saved q, k, v in plain ops (:func:`_attend`:
+  ``_sdpa_dense``, or ``_sdpa_chunked`` above ``CHUNK_THRESHOLD`` keys)
+  and differentiates that. This is the
+  reference's own training math: it differentiates its pure-JAX
+  ``_sdpa_dense``/``_sdpa_chunked`` and has no Pallas backward.
 * :func:`gqa_attention` with a cache at ``cache_pos == 0`` (prefill) runs
   the kernel on the fresh k, v of length S, then writes them into the
   cache. The reference's ``_sdpa_dense`` over the whole ``max_len`` cache
@@ -24,21 +31,24 @@ Where attention goes:
 
 Dropped from the reference, because one device has nothing to shard or
 account: the mesh hints (``hint``, ``hint_heads``, ``mesh_hints``) and
-``accounting_unroll``/``scan_unroll``. The chunked attention path and the
-remat (``jax.checkpoint``) wrappers go with the switch above.
+``accounting_unroll``/``scan_unroll``. Remat (``jax.checkpoint``) is
+``lm.remat_call``.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from .config import ArchConfig
 
 MOE_GROUP = 32_768   # max tokens dispatched per group (bounds E*C*D buffer)
+CHUNK_THRESHOLD = 2048   # KV lengths above this recompute attention in chunks
+ATTN_CHUNK = 1024
 
 
 def rms_norm(x, gamma, eps=1e-5):
@@ -115,14 +125,16 @@ def attention_params(cfg: ArchConfig, gen: torch.Generator,
     }
 
 
-def _sdpa_dense(q, k, v, causal, q_offset=0):
-    """q: (B,S,H,Dh), k/v: (B,Sk,Hkv,Dh). Materializes (S,Sk) scores."""
+def _sdpa_dense(q, k, v, causal, q_offset=0, scale: Optional[float] = None):
+    """q: (B,S,H,Dh), k/v: (B,Sk,Hkv,Dh). Materializes (S,Sk) scores, scaled
+    by ``scale`` (default: divided by sqrt(Dh))."""
     S, H, Dh = q.shape[1:]
     Hkv = k.shape[2]
     if Hkv != H:
         k = k.repeat_interleave(H // Hkv, dim=2)
         v = v.repeat_interleave(H // Hkv, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(Dh)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    s = s / math.sqrt(Dh) if scale is None else s * scale
     if causal:
         qi = torch.arange(S, device=q.device)[:, None] + q_offset
         ki = torch.arange(k.shape[1], device=q.device)[None, :]
@@ -131,15 +143,91 @@ def _sdpa_dense(q, k, v, causal, q_offset=0):
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
+def _sdpa_chunked(q, k, v, causal, scale: float):
+    """Online softmax over ATTN_CHUNK-key chunks, each chunk's scores
+    recomputed in backward (the reference's ``_sdpa_chunked``, whose scan
+    body is a ``jax.checkpoint``): memory O(S * chunk), not O(S * Sk).
+    q/k share Dh; v may have its own head dim."""
+    B, S, H, _ = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if Hkv != H:
+        k = k.repeat_interleave(H // Hkv, dim=2)
+        v = v.repeat_interleave(H // Hkv, dim=2)
+    qi = torch.arange(S, device=q.device)[:, None]
+
+    def body(m, l, acc, kb, vb, c0):
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kb).float() * scale
+        if causal:
+            ki = c0 + torch.arange(kb.shape[1], device=q.device)[None, :]
+            s = s.masked_fill(~(qi >= ki), -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha.permute(0, 2, 1, 3) + torch.einsum(
+            "bhqk,bkhd->bqhd", p.to(vb.dtype), vb).float()
+        return m_new, l, acc
+
+    m = torch.full((B, H, S, 1), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, S, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, H, v.shape[-1]), dtype=torch.float32, device=q.device)
+    for c0 in range(0, Sk, ATTN_CHUNK):
+        kb, vb = k[:, c0:c0 + ATTN_CHUNK], v[:, c0:c0 + ATTN_CHUNK]
+        m, l, acc = checkpoint(body, m, l, acc, kb, vb, c0, use_reentrant=False)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    return (acc / l.permute(0, 2, 1, 3)).to(q.dtype)
+
+
+def _attend(q, k, v, causal, scale: float):
+    """Attention in plain differentiable ops, (B, S, H, Dh) layout: the
+    reference's ``sdpa`` (chunked above CHUNK_THRESHOLD keys when they
+    split into whole chunks, else dense)."""
+    if k.shape[1] > CHUNK_THRESHOLD and k.shape[1] % ATTN_CHUNK == 0:
+        return _sdpa_chunked(q, k, v, causal, scale)
+    return _sdpa_dense(q, k, v, causal, scale=scale)
+
+
+def _flash(q, k, v, causal, scale):
+    """The flash_attention kernel on (B, S, H, Dh) operands."""
+    return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               causal=causal, scale=scale).transpose(1, 2)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash_attention kernel as a differentiable op, (B, S, H, Dh).
+
+    Forward: the kernel (on the card the wgmma design for bf16, wgmma3 for
+    fp32; on CPU tensors its plain version). Backward: attention recomputed
+    from the saved q, k, v by :func:`_attend` and differentiated there."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _flash(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _attend(*saved, ctx.causal, ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, saved, grad)
+        return dq, dk, dv, None, None
+
+
 def sdpa(q, k, v, causal=True):
-    """Attention through the flash_attention kernel, (B, S, H, Dh) layout.
+    """Attention through the flash_attention kernel, (B, S, H, Dh) layout,
+    differentiable through :class:`FlashAttention` (under no_grad, or with
+    inputs that need no gradient, its apply runs the kernel and records
+    nothing).
 
     q/k share Dh; v may have a smaller head dim (MLA: qk 192, v 128). All
     three are zero-padded to the multiple of 8 at or above Dh, so that a row
     of a bf16 operand fills whole 16-byte units, as the kernel's wgmma design
     needs (SmolLM's smoke config has Dh 20): the zero columns add exact
     zeros to every score, the scale stays 1/sqrt(Dh), and the zero output
-    columns are sliced off (exact).
+    columns are sliced off (exact). The padding and the slice stay outside
+    the autograd Function; both are differentiable.
     """
     d, dv = q.shape[-1], v.shape[-1]
     dp = -(-d // 8) * 8
@@ -147,9 +235,7 @@ def sdpa(q, k, v, causal=True):
         q, k = F.pad(q, (0, dp - d)), F.pad(k, (0, dp - d))
     if dv != dp:
         v = F.pad(v, (0, dp - dv))
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=causal, scale=1.0 / d ** 0.5).transpose(1, 2)
-    return out[..., :dv]
+    return FlashAttention.apply(q, k, v, causal, 1.0 / d ** 0.5)[..., :dv]
 
 
 def gqa_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cache_pos=None):

@@ -23,23 +23,27 @@ The cache is a dict of preallocated tensors with the reference's shapes
 ``decode_step`` to save memory; the reference's update is functional. Both
 return the same dict.
 
+Training: ``remat`` (the reference's ``jax.checkpoint`` per block) becomes
+``torch.utils.checkpoint`` per block, non-reentrant, whenever grad is
+enabled; the attention of each recomputed block goes through the kernel
+again (``layers.FlashAttention``).
+
 API (the reference's, with a model in place of the pytree):
   init_params(cfg, gen)                         -> model
-  forward(cfg, model, tokens)                   -> logits
+  forward(cfg, model, tokens)                   -> logits             (train)
+  loss_fn(cfg, model, batch)                    -> scalar loss
   init_cache(cfg, batch, max_len)               -> cache
   prefill(cfg, model, tokens, cache)            -> (logits, cache)
   decode_step(cfg, model, cache, tok, pos)      -> (logits, cache)
-
-``loss_fn``/``xent`` and the multi-token-prediction loss wait for the
-training slice; the MTP block's parameters are built already, so the model
-holds the reference's whole tree.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as devmod
 from . import layers as L, ssm as S
@@ -48,25 +52,36 @@ from .config import ArchConfig
 
 class Model(nn.Module):
     """A nested dict of tensors as modules: a dict becomes a sub-module, a
-    list an ``nn.ModuleList`` (one entry per layer), a tensor a frozen
-    parameter. ``p["name"]`` reads an entry, as in the reference's pytree."""
+    list an ``nn.ModuleList`` (one entry per layer), a tensor a parameter,
+    frozen (serving) unless ``requires_grad`` (training). ``p["name"]``
+    reads an entry, as in the reference's pytree; :meth:`tree` gives the
+    nested dict back, which the optimizers and checkpoints take."""
 
-    def __init__(self, tree: Dict[str, Any], cfg: Optional[ArchConfig] = None):
+    def __init__(self, tree: Dict[str, Any], cfg: Optional[ArchConfig] = None,
+                 requires_grad: bool = False):
         super().__init__()
         self.cfg = cfg
         for name, value in tree.items():
             if isinstance(value, dict):
-                self.add_module(name, Model(value))
+                self.add_module(name, Model(value, requires_grad=requires_grad))
             elif isinstance(value, (list, tuple)):
-                self.add_module(name, nn.ModuleList(Model(v) for v in value))
+                self.add_module(name, nn.ModuleList(Model(v, requires_grad=requires_grad)
+                                                    for v in value))
             else:
-                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(value, requires_grad=requires_grad))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+    def tree(self) -> Dict[str, Any]:
+        """The parameters as a nested dict (a list per layer stack)."""
+        out: Dict[str, Any] = dict(self._parameters)
+        for name, m in self._modules.items():
+            out[name] = [c.tree() for c in m] if isinstance(m, nn.ModuleList) else m.tree()
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -154,31 +169,47 @@ def _ssm_block(cfg, p, x, states=None, i=None):
     return x + h
 
 
-def _blocks(cfg: ArchConfig, params, x, positions, cache=None, cache_pos=None):
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, its activations recomputed in backward
+    (``torch.utils.checkpoint``, non-reentrant) when ``remat`` and grad is
+    enabled: the reference's ``jax.checkpoint`` around a scanned block."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _blocks(cfg: ArchConfig, params, x, positions, cache=None, cache_pos=None,
+            remat: bool = False):
     """Every layer of the stack; with a cache, filled (prefill, cache_pos
-    0) or extended (decode) in place."""
+    0) or extended (decode) in place; without one, each block under
+    :func:`remat_call`."""
+    remat = remat and cache is None
     if cfg.family in ("dense", "vlm", "moe"):
         for i, lp in enumerate(params["layers"]):
-            x = _attn_block(cfg, lp, x, positions, _layer(cache, i), cache_pos)
+            x = remat_call(remat, functools.partial(_attn_block, cfg, lp), x, positions,
+                           _layer(cache, i), cache_pos)
         return x
     if cfg.family not in ("ssm", "hybrid"):
         raise ValueError(cfg.family)
     states = cache if cache is None or cfg.family == "ssm" else cache["ssm"]
     for i, lp in enumerate(params["layers"]):
-        x = _ssm_block(cfg, lp, x, states, i)
+        x = remat_call(remat, functools.partial(_ssm_block, cfg, lp), x, states, i)
         if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
             # groups of attn_every ssm blocks, each followed by the shared
             # attention block with its own KV history
             g = i // cfg.attn_every
             ac = None if cache is None else {"k": cache["attn_k"][g], "v": cache["attn_v"][g]}
-            x = _attn_block(cfg, params["shared_attn"], x, positions, ac, cache_pos)
+            x = remat_call(remat, functools.partial(_attn_block, cfg, params["shared_attn"]),
+                           x, positions, ac, cache_pos)
     return x
 
 
+def _head(cfg: ArchConfig, params):
+    return params["embed"].mT if cfg.tie_embeddings else params["lm_head"]
+
+
 def _logits(cfg: ArchConfig, params, x):
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].mT if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps) @ _head(cfg, params)
 
 
 def _positions(B, S, start, device):
@@ -186,15 +217,56 @@ def _positions(B, S, start, device):
 
 
 # ---------------------------------------------------------------------------
-# forward (no cache)
+# forward (train / no cache)
 # ---------------------------------------------------------------------------
 
 
-def forward(cfg: ArchConfig, params, tokens):
-    """tokens: (B,S) int -> logits (B,S,V)."""
-    B, Sq = tokens.shape
-    x = params["embed"][tokens]
-    return _logits(cfg, params, _blocks(cfg, params, x, _positions(B, Sq, 0, x.device)))
+def forward(cfg: ArchConfig, params, tokens, remat: bool = True,
+            input_embeds: Optional[torch.Tensor] = None, return_hidden: bool = False):
+    """tokens: (B,S) int (or ``input_embeds`` (B,S,D) for frontend stubs) ->
+    logits (B,S,V), and the final-norm hidden states with ``return_hidden``."""
+    x = input_embeds if input_embeds is not None else params["embed"][tokens]
+    B, Sq = x.shape[:2]
+    x = _blocks(cfg, params, x, _positions(B, Sq, 0, x.device), remat=remat)
+    hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = hidden @ _head(cfg, params)
+    return (logits, hidden) if return_hidden else logits
+
+
+def loss_fn(cfg: ArchConfig, params, batch, remat: bool = True):
+    """batch: dict(tokens (B,S+1)) -> mean next-token cross-entropy.
+
+    With ``cfg.mtp_depth``, adds the DeepSeek-V3 multi-token-prediction
+    auxiliary loss (predict t+2 from the backbone state at t).
+    """
+    tokens = batch["tokens"]
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    embeds = batch.get("input_embeds")
+    logits, hidden = forward(cfg, params, inp, remat=remat, return_hidden=True,
+                             input_embeds=None if embeds is None else embeds[:, :-1])
+    loss = xent(logits, tgt)
+    if cfg.mtp_depth:
+        # MTP: at position t, combine h_t with emb(token_{t+1}) to predict
+        # token_{t+2} through one extra block (DeepSeek-V3 Section 2.2)
+        mp = params["mtp"]
+        B, Sq = inp.shape
+        h = hidden[:, : Sq - 1]                                 # (B,S-1,D)
+        nxt = params["embed"][inp[:, 1:]].to(h.dtype)           # emb(t+1)
+        z = torch.cat([h, nxt], dim=-1) @ mp["proj"]
+        z = _attn_block(cfg, mp["block"], z, _positions(B, Sq - 1, 0, z.device))
+        z = L.rms_norm(z, mp["norm"], cfg.norm_eps)
+        loss = loss + 0.3 * xent(z @ _head(cfg, params), tgt[:, 1:])   # token t+2
+    return loss
+
+
+def xent(logits, targets):
+    """Mean cross-entropy in fp32: logsumexp over the vocabulary minus the
+    target logit (the reference takes it by a one-hot contraction, which
+    selects the same value exactly)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)                       # (B,S)
+    tgt_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (lse - tgt_logit).mean()
 
 
 # ---------------------------------------------------------------------------

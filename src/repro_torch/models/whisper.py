@@ -12,19 +12,22 @@ the reference: callers give precomputed frame embeddings (B, S_enc, D).
 Decode uses a KV cache for decoder self-attention plus cross-attention K/V
 precomputed at prefill, all written in place. Cross-attention is not
 causal, so it runs through the kernel at every step (the reference calls
-``_sdpa_dense`` there, the same function). ``decode_train``/``loss_fn``
-wait for the training slice.
+``_sdpa_dense`` there, the same function). Training (``decode_train``,
+``loss_fn``) recomputes each encoder and decoder block in backward, as the
+reference's ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
+
+import functools
 
 import torch
 
 from .. import device as devmod
 from . import layers as L
 from .config import ArchConfig
-from .lm import Model
+from .lm import Model, remat_call, xent
 
 
 def _enc_block_params(cfg, gen, dtype):
@@ -61,16 +64,20 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16) -> 
     return Model(tree, cfg)
 
 
-def encode(cfg: ArchConfig, params, frames):
+def _enc_block(cfg, lp, x, positions):
+    h, _ = L.gqa_attention(cfg, lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                           positions, causal=False)
+    x = x + h
+    return x + L.glu_mlp(cfg, lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+
+
+def encode(cfg: ArchConfig, params, frames, remat: bool = True):
     """frames: (B, S_enc, D) precomputed embeddings (frontend stub)."""
     B, S, _ = frames.shape
     positions = torch.arange(S, device=frames.device)[None].expand(B, S)
     x = frames
     for lp in params["enc_layers"]:
-        h, _ = L.gqa_attention(cfg, lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                               positions, causal=False)
-        x = x + h
-        x = x + L.glu_mlp(cfg, lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = remat_call(remat, functools.partial(_enc_block, cfg, lp), x, positions)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -84,6 +91,34 @@ def _cross_attention(cfg, p, x, enc_out):
     v = (enc_out @ p["v"]).reshape(B, -1, cfg.n_kv_heads, hd)
     out = L.sdpa(q, k, v, causal=False)
     return out.reshape(B, S, cfg.n_heads * hd) @ p["o"]
+
+
+def _dec_block(cfg, lp, x, positions, enc_out):
+    h, _ = L.gqa_attention(cfg, lp["self_attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                           positions, causal=True)
+    x = x + h
+    x = x + _cross_attention(cfg, lp["cross_attn"], L.rms_norm(x, lp["ln_x"], cfg.norm_eps),
+                             enc_out)
+    return x + L.glu_mlp(cfg, lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+
+
+def decode_train(cfg: ArchConfig, params, tokens, enc_out, remat: bool = True):
+    """Teacher-forced decoder pass. tokens: (B, S_dec) -> logits (B, S_dec, V)."""
+    B, S = tokens.shape
+    x = params["tok_embed"][tokens]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for lp in params["dec_layers"]:
+        x = remat_call(remat, functools.partial(_dec_block, cfg, lp), x, positions, enc_out)
+    x = L.rms_norm(x, params["dec_norm"], cfg.norm_eps)
+    return x @ params["tok_embed"].mT
+
+
+def loss_fn(cfg: ArchConfig, params, batch, remat: bool = True):
+    """batch: dict(frames (B,S_enc,D), tokens (B,S_dec+1))."""
+    enc_out = encode(cfg, params, batch["frames"], remat)
+    tokens = batch["tokens"]
+    logits = decode_train(cfg, params, tokens[:, :-1], enc_out, remat)
+    return xent(logits, tokens[:, 1:])
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,

@@ -562,3 +562,67 @@ def test_smoke_models_in_bf16_take_the_wgmma_design(arch, cuda_device):
     assert tokens.shape == (2, 4) and stats["finite"] and finite
     assert after["wgmma3"] == before["wgmma3"]
     assert after["wgmma"] > before["wgmma"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_function_trains_through_the_kernel(dtype, cuda_device):
+    """Training attention on the card: the autograd Function's forward is one
+    kernel launch of the dtype's design (never the plain version), its output
+    is the kernel's, and its gradient is autograd through the plain
+    attention on the saved q, k, v (equal bit for bit)."""
+    from repro_torch.models import layers as TL
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype).requires_grad_(True)
+               for shape in ((2, 96, 8, 64), (2, 96, 2, 64), (2, 96, 2, 64)))
+    g_out = torch.randn((2, 96, 8, 64), generator=g, device=cuda_device).to(dtype)
+    design = kfa.DESIGNS[dtype]
+    before = dict(kfa.flash_attention.launches_by_design)
+    out = TL.sdpa(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    assert kfa.flash_attention.launches_by_design[design] == before[design] + 1
+    kernel = kfa.flash_attention(*(t.detach().transpose(1, 2) for t in (q, k, v)),
+                                 causal=True).transpose(1, 2)
+    assert torch.equal(out.detach(), kernel)
+    got = torch.autograd.grad(out, (q, k, v), g_out)
+    want = torch.autograd.grad(TL._attend(q, k, v, True, 64 ** -0.5), (q, k, v), g_out)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "smollm_360m", "deepseek_v3_671b",
+                                  "zamba2_7b", "whisper_base", "falcon_mamba_7b"])
+def test_smoke_train_step_on_the_card(arch, cuda_device):
+    """One bf16 train step of each family on the card: every parameter gets a
+    finite gradient (value_and_grad raises on a missing one), the loss and
+    the new weights are finite, and with remat every attention of a block
+    runs the wgmma kernel twice (forward and recompute); DeepSeek's MTP
+    block, outside the remat'd stack, once."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = get_smoke_config(arch)
+    model = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    batch = steps.batch_to(SyntheticLM(cfg.vocab, 2, 32, seed=0).batch_at(0), cuda_device)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, 24, cfg.d_model), device=cuda_device).bfloat16()
+    loss, grads = steps.value_and_grad(cfg, model, batch)
+    assert torch.isfinite(loss) and all(bool(torch.isfinite(t).all()) for t in tree_leaves(grads))
+    fn = steps.make_train_step(cfg, ShapeConfig("t", 32, 2, "train"), lr=1e-3, warmup=1,
+                               total_steps=10)
+    before = dict(kfa.flash_attention.launches_by_design)
+    new, _state, metrics = fn(model, steps.optim.make_optimizer(
+        steps.pick_optimizer(cfg)).init(model.tree()), batch, 1)
+    torch.cuda.synchronize()
+    launched = {d: kfa.flash_attention.launches_by_design[d] - before[d] for d in before}
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert all(bool(torch.isfinite(p).all()) for p in new.parameters())
+    blocks = {"audio": cfg.n_enc_layers + 2 * cfg.n_dec_layers, "ssm": 0,
+              "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}.get(cfg.family, cfg.n_layers)
+    assert launched == {"wgmma": 2 * blocks + (1 if cfg.mtp_depth else 0), "wgmma3": 0}

@@ -33,6 +33,20 @@ SLICE_MODULES = [
     "repro_torch.core.ilalint",
     "repro_torch.core.faults",
     "repro_torch.core.campaign",
+    "repro_torch.core.serving",
+    "repro_torch.data.pipeline",
+    "repro_torch.optim",
+    "repro_torch.optim.optimizers",
+    "repro_torch.optim.compression",
+    "repro_torch.checkpoint.manager",
+    "repro_torch.runtime.trainer",
+    "repro_torch.launch.steps",
+    "repro_torch.launch.train",
+    "repro_torch.examples",
+    "repro_torch.examples.quickstart",
+    "repro_torch.examples.numerics_codesign",
+    "repro_torch.examples.serve_decode",
+    "repro_torch.examples.train_smollm",
     "repro_torch.accel.numerics",
     "repro_torch.accel.target",
     "repro_torch.accel.flexasr",

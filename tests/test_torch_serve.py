@@ -77,11 +77,15 @@ def test_generate_audio_starts_from_token_zero():
         serve.generate(cfg, model, frames, 0)
 
 
-def test_cli_runs_on_cpu_and_refuses_cosim(capsys):
+def test_cli_runs_on_cpu_and_refuses_cosim(monkeypatch, capsys):
     tokens = serve.serve_llm(serve.argparse.Namespace(
         arch="smollm-360m", smoke=True, batch=2, prompt=6, gen=3, seed=0, device="cpu"))
     assert tokens.shape == (2, 3)
     out = capsys.readouterr().out
     assert "prefill:" in out and "decode: 2 steps x2" in out
-    with pytest.raises(SystemExit, match="Queue 1 item 13"):
+    # --cosim is served now (tests/test_torch_serving.py); without --device
+    # it refuses a host without CUDA before any work, as every entry point does
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "smollm-360m", "--cosim", "resmlp"])
+    assert "compiled" not in capsys.readouterr().out
