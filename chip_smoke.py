@@ -147,13 +147,30 @@ without one). Phases, one line each:
              15 restarts once from the step-9 checkpoint (step 10 run twice,
              step 0 once), the last loss below the first; a sleep at step 20
              (30 x the median step, 1-6 s) flagged as a straggler
+16. distributed
+             the sharding layer (``launch/{mesh,sharding,steps}.py``):
+             the spec trees (params, AdamW and Adafactor state, batch, the
+             decode_32k and long_500k caches) of all ten full configs on
+             the 16x16 and 2x16x16 meshes over a fake process group, on
+             meta tensors: sharded / replicated leaves and parameter bytes
+             per device. Then NCCL at world size 1 (a HashStore) and the
+             1x1 smoke mesh: TinyLlama-1.1B at full width, bf16, AdamW, 2
+             steps of 4 x 1024 tokens through ``make_train_step(cfg,
+             shape, mesh)`` on DTensors against the plain step on the same
+             weights and batches (gates: loss, grad norm, every parameter
+             and both moments bit-identical; 44 wgmma launches a step on
+             path "dist"), s/step of both; prefill + 8 decode steps
+             through ``make_serve_step`` at lm_serve's shapes (gates:
+             greedy ids equal ``launch.serve.generate``'s, 22 wgmma
+             launches in prefill); every process group destroyed
 
 Every count of kernel launches is set to 0 just before a path runs and read
 just after it. Then one JSON line with an entry per kernel and per design of
 flash_attention (``{"kernels": [...]}``; each entry also gives its CUDA
 launches per call, its time above the launch floor and its launches per
 path: "table4" for phases 4-7, "vt3", "lm" for phases 10-12,
-"serve_cosim" for 13 and "train" for 14-15), the card's nvidia-smi line
+"serve_cosim" for 13, "train" for 14-15 and "dist" for 16), the card's
+nvidia-smi line
 and, last, the result line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -214,6 +231,10 @@ TRAIN_GRAD_BF16, TRAIN_GRAD_FP32 = 2.0 ** -4, 1e-4
 #: The run holds such wrong forwards (TRAIN_GRAD_WRONG) beyond it as well.
 TRAIN_GRAD_BF16_L2 = 2.0 ** -4
 TRAIN_GRAD_WRONG = ("non_causal", "scale_x1.1")
+#: the sharding layer: TinyLlama-1.1B at full width on a 1x1 NCCL mesh,
+#: 2 sharded train steps at lm_train's shapes, then prefill + 8 decode steps
+#: at lm_serve's
+DIST_ARCH, DIST_STEPS, DIST_DECODE = LM_ARCH, 2, 8
 
 N_EVAL = 40
 TRAIN_STEPS = 600
@@ -698,6 +719,202 @@ def trainer_phase(dev, zero_counts, read_counts, report: dict, out_dir: Path) ->
         raise AssertionError(f"trainer_restart: {report['trainer_restart']}")
 
 
+def spec_trees(arch_ids) -> dict:
+    """Every spec tree of the sharding layer (params, AdamW and Adafactor
+    state, batch, the decode_32k and, where supported, long_500k caches)
+    for each full config on the production meshes, over a fake process
+    group of the mesh's world size, on meta tensors: per config and mesh,
+    the sharded and replicated leaf counts and the parameter bytes one
+    device holds."""
+    import math
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch import optim as roptim
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as rmesh, sharding as shd, steps as rsteps
+    from repro_torch.models import api as lm_api
+    from repro_torch.models.config import SHAPES
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    out = {}
+    for multi_pod in (False, True):
+        world = 512 if multi_pod else 256
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+        try:
+            mesh = rmesh.make_production_mesh(multi_pod=multi_pod, device="cpu")
+            sizes = rmesh.axis_sizes(mesh)
+            name = "x".join(map(str, mesh.mesh.shape))
+            for arch in arch_ids:
+                cfg = get_config(arch)
+                params = rsteps.abstract_params(cfg)
+                pspecs = shd.param_specs(params, mesh)
+                trees = {"params": pspecs, "batch": shd.batch_specs(cfg, mesh)}
+                for opt in ("adamw", "adafactor"):
+                    trees[opt] = rsteps._opt_specs(
+                        roptim.make_optimizer(opt).init(params.tree()), pspecs)
+                for sname in ("decode_32k", "long_500k"):
+                    shape = SHAPES[sname]
+                    if lm_api.cell_is_supported(cfg, shape)[0]:
+                        trees[sname] = shd.cache_specs(cfg, lm_api.init_cache(
+                            cfg, shape.global_batch, shape.seq_len, device="meta"), mesh,
+                            shape.global_batch)
+                counts = {}
+                for key, tree in trees.items():
+                    specs = tree_leaves(tree)
+                    n_sh = sum(any(a is not None for a in s) for s in specs)
+                    counts[key] = (n_sh, len(specs) - n_sh)
+                per_dev = []
+                tree_map(lambda t, s: per_dev.append(t.numel() * t.element_size() // math.prod(
+                    sizes[a] for e in s for a in ((e,) if isinstance(e, str) else e or ()))),
+                    params.tree(), pspecs)
+                out[f"{arch}@{name}"] = {"leaves": counts, "param_bytes_per_device": sum(per_dev),
+                                         "param_bytes": sum(p.numel() * p.element_size()
+                                                            for p in params.parameters())}
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def distributed_phase(dev, zero_counts, read_counts, report: dict, smi: str) -> None:
+    """Phase 16: the sharding layer on the card. TinyLlama-1.1B trained
+    through the sharded step bundle on a 1x1 NCCL mesh against the plain
+    step, prefill + decode through the serve bundles against
+    ``launch.serve.generate``, and the spec trees of all ten configs at the
+    production meshes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import optim as roptim
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import mesh as rmesh, sharding as shd, steps as rsteps
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import api as lm_api
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.optimizers import tree_leaves
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    trees = spec_trees(ARCH_IDS)
+    trees_s = time.perf_counter() - t0
+    for key, v in trees.items():
+        phase("dist_specs", config=key, **{k: f"{a}/{b}" for k, (a, b) in v["leaves"].items()},
+              param_gb_per_device=f"{v['param_bytes_per_device'] / 1e9:.3f}",
+              param_gb=f"{v['param_bytes'] / 1e9:.1f}")
+
+    cfg = get_config(DIST_ARCH)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = rmesh.make_smoke_mesh(device=dev)
+        shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        kw = dict(optimizer="adamw", lr=TRAIN_LR, warmup=1, total_steps=DIST_STEPS)
+        model = lm_api.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        opt_state = roptim.make_optimizer("adamw").init(model.tree())
+        data = SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        batches = [rsteps.batch_to(data.batch_at(i), dev) for i in range(DIST_STEPS)]
+
+        def run(fn, model, opt_state):
+            metrics, secs, wgmma = [], [], []
+            for i, batch in enumerate(batches):
+                before = flash_attention.launches_by_design["wgmma"]
+                t0 = time.perf_counter()
+                model, opt_state, m = fn(model, opt_state, batch, i)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                wgmma.append(flash_attention.launches_by_design["wgmma"] - before)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            return model, opt_state, metrics, secs, wgmma
+
+        plain = rsteps.make_train_step(cfg, shape, **kw)
+        zero_counts()
+        p_model, p_opt, p_metrics, p_secs, _ = run(plain, model, opt_state)
+        zero_counts()
+        bundle = rsteps.make_train_step(cfg, shape, mesh, **kw)
+        zero_counts()
+        s_model, s_opt, s_metrics, s_secs, s_wgmma = run(bundle.fn, model, opt_state)
+        launched = read_counts("dist")
+        is_dt = all(isinstance(p, DTensor) for p in s_model.parameters())
+        worst = {"params": 0.0, "m": 0.0, "v": 0.0}
+        for key, got, want in (("params", s_model.tree(), p_model.tree()),
+                               ("m", s_opt["m"], p_opt["m"]), ("v", s_opt["v"], p_opt["v"])):
+            for a, b in zip(tree_leaves(got), tree_leaves(want)):
+                a = (a.full_tensor() if isinstance(a, DTensor) else a).detach()
+                worst[key] = max(worst[key], float((a.float() - b.detach().float()).abs().max()))
+        del p_model, p_opt, s_model, s_opt
+        same = p_metrics == s_metrics and not any(worst.values())
+        want_per_step = 2 * cfg.n_layers
+        phase("dist_train", arch=cfg.name, mesh="1x1", backend="nccl", dtype="bf16",
+              batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=DIST_STEPS,
+              loss="/".join(f"{a[0]:.6f}" for a in s_metrics),
+              grad_norm="/".join(f"{a[1]:.6f}" for a in s_metrics),
+              plain_loss="/".join(f"{a[0]:.6f}" for a in p_metrics),
+              max_abs_dev="/".join(f"{k}:{v:.3e}" for k, v in worst.items()),
+              bit_identical=same, dtensor_params=is_dt,
+              wgmma_per_step="/".join(map(str, s_wgmma)),
+              s_per_step_dtensor="/".join(f"{x:.4f}" for x in s_secs),
+              s_per_step_plain="/".join(f"{x:.4f}" for x in p_secs), card=smi.replace(" ", "_"))
+        dist_report = {"spec_trees": trees, "spec_trees_s": trees_s, "train": {
+            "loss_grad_norm": s_metrics, "plain_loss_grad_norm": p_metrics, "max_abs_dev": worst,
+            "bit_identical": same, "wgmma_per_step": s_wgmma, "launches": launched,
+            "s_per_step_dtensor": s_secs, "s_per_step_plain": p_secs, "card": smi}}
+        report["distributed"] = dist_report
+        others = {k: v for k, v in launched.items() if not k.startswith("flash_attention")}
+        if not same or not is_dt or s_wgmma != [want_per_step] * DIST_STEPS \
+                or launched["flash_attention"] != launched["flash_attention:wgmma"] \
+                or any(others.values()):
+            raise AssertionError(f"dist_train: {dist_report['train']}")
+
+        # serving through the bundles at lm_serve's shapes, against generate
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(dev)
+        with torch.no_grad():
+            want = generate(cfg, model, prompt, DIST_DECODE + 1)
+        model = shd.distribute(model, mesh)     # once, as a server would
+        sshape = ShapeConfig("serve", LM_PROMPT + DIST_DECODE + 1, LM_BATCH, "decode")
+        pre = rsteps.make_serve_step(cfg, sshape, mesh, "prefill")
+        dec = rsteps.make_serve_step(cfg, sshape, mesh, "decode")
+        cache = lm_api.init_cache(cfg, LM_BATCH, LM_PROMPT + DIST_DECODE + 1, torch.bfloat16,
+                                  dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = pre.fn(model, {"tokens": prompt}, cache)
+        tok = logits.full_tensor()[:, -1].argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        ids, decode_ms = [tok], []
+        for i in range(DIST_DECODE):
+            t0 = time.perf_counter()
+            logits, cache = dec.fn(model, cache, tok, LM_PROMPT + i)
+            tok = logits.full_tensor()[:, -1].argmax(dim=-1, keepdim=True)
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            ids.append(tok)
+        serve_counts = read_counts("dist")
+        got = torch.cat(ids, dim=1)
+        ids_equal = bool(torch.equal(got, want))
+        phase("dist_serve", arch=cfg.name, mesh="1x1", batch=LM_BATCH, prompt=LM_PROMPT,
+              decode_steps=DIST_DECODE, ids_equal=ids_equal,
+              prefill_s=f"{prefill_s:.4f}", first_decode_ms=f"{decode_ms[0]:.3f}",
+              decode_ms_per_step=f"{float(np.median(decode_ms[1:])):.3f}",
+              prefill_wgmma=serve_counts["flash_attention:wgmma"], card=smi.replace(" ", "_"))
+        dist_report["serve"] = {"ids_equal": ids_equal, "prefill_s": prefill_s,
+                                "decode_ms": decode_ms, "launches": serve_counts,
+                                "ids_head": got[0].tolist()}
+        if not ids_equal or serve_counts["flash_attention:wgmma"] != cfg.n_layers:
+            raise AssertionError(f"dist_serve: {dist_report['serve']}")
+        del model, opt_state, cache
+    finally:
+        dist.destroy_process_group()
+    if dist.is_initialized():
+        raise AssertionError("a process group outlived the distributed phase")
+    phase("distributed_done", phase_s=f"{time.perf_counter() - t_phase:.2f}")
+
+
 def main() -> int:
     import copy
 
@@ -738,7 +955,7 @@ def main() -> int:
     path_launches = {name: 0 for name in list(wrappers) + [f"flash_attention:{d}"
                                                            for d in designs]}
     #: the same launches per path: "table4" (phases 4-7), "vt3", "lm" (10-12),
-    #: "serve_cosim" (13), "train" (14-15)
+    #: "serve_cosim" (13), "train" (14-15), "dist" (16)
     launches_by_path = {name: {} for name in path_launches}
 
     def zero_counts():
@@ -1594,6 +1811,8 @@ def main() -> int:
     lm_train_phase(dev, zero_counts, read_counts, report, get_config(LM_ARCH),
                    get_smoke_config(LM_ARCH))
     trainer_phase(dev, zero_counts, read_counts, report, out_dir)
+    # 16. the sharding layer on the card
+    distributed_phase(dev, zero_counts, read_counts, report, smi)
 
     # the kernel line, one entry per CUDA source and per design of
     # flash_attention (bf16 and fp32, both from flash_attention_sm90.cu): the

@@ -37,7 +37,10 @@ sustained QPS, p50/p95/p99 request latency, rejections, then the
 per-device utilization, pipeline-stage and cache-health tables. All
 engines serve bit-identical results for a given ``--seed`` (request
 operands derive from ``(seed, request_id)``). The reference's ``--mesh``
-is not ported: one card has nothing to shard.
+shards the ILA simulators' vmapped batch axis over devices
+(``ila.set_stream_mesh``), not a model: the port's stream mesh is the
+one-device case, so the flag is not ported. Sharded LM serving steps are
+``launch.steps.make_serve_step``.
 """
 from __future__ import annotations
 

@@ -3,22 +3,44 @@
     python -m repro_torch.launch.train --arch smollm-360m --steps 200 \
         [--smoke] [--ckpt-dir DIR] [--batch 8] [--seq 64] [--device cuda]
 
-Port of ``repro/launch/train.py`` on one device (``--device``, default the
-GPU; a host without CUDA raises, ``--device cpu`` runs there). ``--smoke``
-selects the reduced same-family config; without it the full published
-config is used. There is no ``--multi-pod`` and no mesh: sharding is not
-ported (ROADMAP.md).
+Port of ``repro/launch/train.py`` (``--device``, default the GPU; a host
+without CUDA raises, ``--device cpu`` runs there). ``--smoke`` selects the
+reduced same-family config; without it the full published config is used.
+The mesh is the production mesh (``--multi-pod``: 2x16x16) when a process
+group of world size > 1 is initialised, as ``torchrun`` sets one up
+(``torchrun --nproc-per-node 8 -m repro_torch.launch.train ...`` on each
+host), else the 1x1 smoke mesh over a process group of one that this
+launcher starts itself.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import tempfile
+
+import torch.distributed as dist
 
 from .. import device as devmod
 from ..configs import get_config, get_smoke_config
 from ..data.pipeline import SyntheticLM
 from ..models.config import ShapeConfig
 from ..runtime.trainer import Trainer, TrainerConfig
+from .mesh import axis_sizes, make_production_mesh, make_smoke_mesh
+
+
+def _process_group(dev) -> bool:
+    """Join ``torchrun``'s process group (its environment names the
+    address, rank and world size) or start a group of one on a free local
+    port; True when this launcher started it (and so ends it)."""
+    if dist.is_initialized():
+        return False
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend)
+    else:
+        store = dist.TCPStore("localhost", 0, 1, is_master=True)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1)
+    return True
 
 
 def main(argv=None):
@@ -32,22 +54,32 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
     dev = devmod.resolve(args.device)
+    started = _process_group(dev)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     shape = ShapeConfig("train", seq_len=args.seq, global_batch=args.batch, kind="train")
     data = SyntheticLM(cfg.vocab, args.batch, args.seq, seed=0)
     ckpt = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_ckpt_")
-    trainer = Trainer(
-        cfg, shape, data,
-        TrainerConfig(ckpt_dir=ckpt, ckpt_every=args.ckpt_every,
-                      max_steps=args.steps, lr=args.lr, warmup=args.warmup),
-        device=dev,
-    )
-    print(f"training {cfg.name} on {dev} ckpt={ckpt}")
-    trainer.run()
+    try:
+        if dist.get_world_size() > 1:
+            mesh = make_production_mesh(multi_pod=args.multi_pod, device=dev)
+        else:
+            mesh = make_smoke_mesh(device=dev)
+        trainer = Trainer(
+            cfg, shape, data,
+            TrainerConfig(ckpt_dir=ckpt, ckpt_every=args.ckpt_every,
+                          max_steps=args.steps, lr=args.lr, warmup=args.warmup),
+            mesh=mesh,
+        )
+        print(f"training {cfg.name} on {dev.type} mesh {axis_sizes(mesh)} ckpt={ckpt}")
+        trainer.run()
+    finally:
+        if started:
+            dist.destroy_process_group()
     losses = [m["loss"] for m in trainer.metrics if "loss" in m]
     print(f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps; "
           f"checkpoints {trainer.ckpt.all_steps()}")

@@ -1,22 +1,21 @@
 """Model facade: family dispatch, smoke batches, and the reference's weights.
 
-Port of ``repro/models/api.py``. The ``*_input_specs`` functions and
-``cell_is_supported``, which serve the reference's dry-run, are not ported
-(ROADMAP.md: the dry-run counts XLA HLO and has no counterpart on one card).
-:func:`params_from_numpy` is new: it turns the reference's parameter
-pytree into the port's model, so tests run both packages on identical
-weights.
+Port of ``repro/models/api.py``. The ``*_input_specs`` functions return
+meta-device tensors (shape and dtype, nothing allocated), the stand-ins of
+the reference's ``ShapeDtypeStruct``s. :func:`params_from_numpy` is new:
+it turns the reference's parameter pytree into the port's model, so tests
+run both packages on identical weights.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from .. import device as devmod
 from . import lm, whisper
-from .config import ArchConfig
+from .config import ArchConfig, ShapeConfig
 
 AUDIO_ENC_FRAMES = 1500   # whisper 30s @ 50Hz (backbone-level stub length)
 
@@ -61,6 +60,50 @@ def forward(cfg: ArchConfig, params, tokens, **kw):
     if cfg.family == "audio":
         raise ValueError("audio family uses loss_fn/encode/decode_train")
     return lm.forward(cfg, params, tokens, **kw)
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta stand-ins) and smoke batches
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "audio":
+        return {
+            "frames": _meta((B, AUDIO_ENC_FRAMES, cfg.d_model), torch.bfloat16),
+            "tokens": _meta((B, S + 1), torch.int32),
+        }
+    return {"tokens": _meta((B, S + 1), torch.int32)}
+
+
+def decode_input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Specs for serve_step: one new token against a seq_len-deep cache."""
+    B, S = shape.global_batch, shape.seq_len
+    return {
+        "tokens": _meta((B, 1), torch.int32),
+        "pos": _meta((), torch.int32),
+        "cache": init_cache(cfg, B, S, device="meta"),
+    }
+
+
+def prefill_input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "audio":
+        return {"frames": _meta((B, AUDIO_ENC_FRAMES, cfg.d_model), torch.bfloat16)}
+    return {"tokens": _meta((B, S), torch.int32)}
+
+
+def cell_is_supported(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Which (arch x shape) cells run."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("long_500k skipped: full-attention arch (O(S) KV cache / quadratic "
+                       "prefill); run for SSM/hybrid only")
+    return True, ""
 
 
 def make_train_batch(cfg: ArchConfig, batch: int, seq: int, rng: np.random.Generator,

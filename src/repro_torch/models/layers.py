@@ -29,18 +29,28 @@ Where attention goes:
   which attends in the compressed latent space (head dim kv_lora + rope,
   576 at full width, beyond the kernel's 256).
 
-Dropped from the reference, because one device has nothing to shard or
-account: the mesh hints (``hint``, ``hint_heads``, ``mesh_hints``) and
-``accounting_unroll``/``scan_unroll``. Remat (``jax.checkpoint``) is
+Sharded runs (``launch/steps.py`` with a mesh) hold parameters and
+activations as DTensors. :func:`hint` and :func:`hint_heads` are the
+reference's activation-sharding hints, at its call sites: under
+:func:`mesh_hints` they redistribute a DTensor to the hinted placements;
+outside it, or on a plain tensor, they return it as it is. :func:`sdpa` on
+DTensors runs the kernel on each rank's local head shard
+(:func:`_sdpa_local`). ``accounting_unroll``/``scan_unroll`` (XLA cost
+accounting) are not ported yet (ROADMAP). Remat (``jax.checkpoint``) is
 ``lm.remat_call``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
@@ -49,6 +59,107 @@ from .config import ArchConfig
 MOE_GROUP = 32_768   # max tokens dispatched per group (bounds E*C*D buffer)
 CHUNK_THRESHOLD = 2048   # KV lengths above this recompute attention in chunks
 ATTN_CHUNK = 1024
+
+# ---------------------------------------------------------------------------
+# activation-sharding hints (reference layers.py:28-120)
+#
+# Sharding propagation follows the parameter and batch placements; a few
+# places need explicit constraints, as in the reference (e.g. the LM head's
+# output, whose contraction dim is FSDP-sharded on the weight side). The
+# sharded steps enable hints with ``mesh_hints(mesh)``; without it hints
+# are no-ops.
+# ---------------------------------------------------------------------------
+
+_MESH_HINTS: contextvars.ContextVar = contextvars.ContextVar("mesh_hints", default=None)
+
+DP = ("pod", "data")   # data-parallel axes (filtered to those present)
+
+
+@contextlib.contextmanager
+def mesh_hints(mesh):
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    token = _MESH_HINTS.set((mesh, sizes))
+    try:
+        yield
+    finally:
+        _MESH_HINTS.reset(token)
+
+
+def hint_spec(shape, spec, sizes) -> tuple:
+    """``spec`` for a tensor of ``shape``, with the reference's drops: an
+    axis absent from the mesh, or whose size does not divide the
+    dimension, leaves that dimension unsharded."""
+    parts = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * len(shape)):
+        if ax is None:
+            parts.append(None)
+            continue
+        axes = tuple(a for a in (ax if isinstance(ax, tuple) else (ax,)) if a in sizes)
+        total = math.prod(sizes[a] for a in axes)
+        parts.append((axes if len(axes) > 1 else axes[0]) if axes and dim % total == 0
+                     else None)
+    return tuple(parts)
+
+
+def hint(x, *spec):
+    """Redistribute the DTensor ``x`` to ``spec`` (:func:`hint_spec`'s
+    drops applied); ``x`` as it is outside :func:`mesh_hints` or when it
+    is a plain tensor."""
+    from ..launch.sharding import Spec, to_placements   # launch imports the models
+
+    hints = _MESH_HINTS.get()
+    if hints is None or not isinstance(x, DTensor):
+        return x
+    mesh, sizes = hints
+    return x.redistribute(mesh, to_placements(Spec(*hint_spec(x.shape, spec, sizes)), mesh))
+
+
+def heads_spec(shape, sizes) -> tuple:
+    """:func:`hint_heads`' spec for a (B, S, H, hd) tensor."""
+    if shape[2] % sizes["model"] == 0:
+        return (DP, None, "model", None)     # reference layers.py:115
+    if shape[1] % sizes["model"] == 0:
+        return (DP, "model", None, None)     # reference layers.py:117
+    return (DP, None, None, "model")         # reference layers.py:118
+
+
+def hint_heads(x):
+    """(B, S, H, hd): shard H over 'model' when divisible; otherwise fall
+    back to sharding the *sequence* over 'model' (attention is per-query-row
+    parallel, so SP is the clean fallback for e.g. smollm's 15 heads on a
+    16-way mesh)."""
+    hints = _MESH_HINTS.get()
+    if hints is None or "model" not in hints[1]:
+        return x
+    return hint(x, *heads_spec(x.shape, hints[1]))
+
+
+def split_heads(x, H: int):
+    """(B, S, H * hd) -> (B, S, H, hd). A DTensor whose last dim is split
+    over mesh dims whose sizes do not divide H is made whole on them first:
+    DTensor cannot unflatten such a split (GSPMD reshards there itself),
+    e.g. TinyLlama's 2 KV heads when their columns split 4 ways."""
+    B, S = x.shape[:2]
+    if isinstance(x, DTensor):
+        mesh, last = x.device_mesh, x.dim() - 1
+        split = [i for i, p in enumerate(x.placements) if p == Shard(last)]
+        if H % math.prod(mesh.size(i) for i in split):
+            x = x.redistribute(mesh, [Replicate() if i in split else p
+                                      for i, p in enumerate(x.placements)])
+    return x.reshape(B, S, H, -1)
+
+
+def embed(table, tokens):
+    """``table[tokens]``, the reference's embedding lookup, as
+    ``F.embedding``. A DTensor table is gathered whole for the lookup (as
+    FSDP gathers a weight before use; its gradient is reduce-scattered back
+    to the table's placements): DTensor's lookup into a vocab-sharded table
+    leaves a masked partial sum that a later redistribution misapplies, and
+    the backward of an indexing (``index_put``) fails sharding propagation
+    on some PyTorch releases."""
+    if isinstance(table, DTensor):
+        table = table.redistribute(table.device_mesh, [Replicate()] * table.device_mesh.ndim)
+    return F.embedding(tokens, table)
 
 
 def rms_norm(x, gamma, eps=1e-5):
@@ -219,7 +330,8 @@ def sdpa(q, k, v, causal=True):
     """Attention through the flash_attention kernel, (B, S, H, Dh) layout,
     differentiable through :class:`FlashAttention` (under no_grad, or with
     inputs that need no gradient, its apply runs the kernel and records
-    nothing).
+    nothing). On DTensors, each rank attends its local shard
+    (:func:`_sdpa_local`).
 
     q/k share Dh; v may have a smaller head dim (MLA: qk 192, v 128). All
     three are zero-padded to the multiple of 8 at or above Dh, so that a row
@@ -229,6 +341,12 @@ def sdpa(q, k, v, causal=True):
     columns are sliced off (exact). The padding and the slice stay outside
     the autograd Function; both are differentiable.
     """
+    if isinstance(q, DTensor):
+        return _sdpa_local(q, k, v, causal)
+    return _flash_padded(q, k, v, causal)
+
+
+def _flash_padded(q, k, v, causal):
     d, dv = q.shape[-1], v.shape[-1]
     dp = -(-d // 8) * 8
     if dp != d:
@@ -238,25 +356,157 @@ def sdpa(q, k, v, causal=True):
     return FlashAttention.apply(q, k, v, causal, 1.0 / d ** 0.5)[..., :dv]
 
 
+def _local_qkv(q, k, v, kv_seq: bool = False):
+    """q, k, v (DTensors, (B, S, H, Dh)) as local tensors that attend to
+    each other rank by rank: (ql, kl, vl, q, k, the mesh dims k's sequence
+    stays split over).
+
+    Per mesh dim q may be replicated, or sharded over batch (dim 0) or
+    heads (dim 2, after :func:`hint_heads`). A shard of q's sequence or head
+    dim (``hint_heads``' fallbacks, e.g. SmolLM's 15 heads on a 16-way
+    'model' axis) is gathered first: a local query chunk would need its
+    causal offset (the kernel's mask is aligned top-left at S == Sk), and
+    a head is attended whole. k and v take q's placements; where q's heads
+    are sharded and the KV heads do not divide by that axis, k and v stay
+    whole there and each rank takes the KV heads its query heads read
+    (their gradients are partial sums over that axis). With ``kv_seq``, a
+    sequence shard of k and v where q is replicated stays (a decode cache
+    in the SP layout). A pending partial sum in q (a projection whose
+    contraction dim is sharded, with no hint after it: Whisper's
+    cross-attention) is reduced onto the heads where they divide, else
+    whole."""
+    mesh = q.device_mesh
+    Hq, Hkv = q.shape[2], k.shape[2]
+    pl = []
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Partial):     # a pending sum (no hint before it): reduced
+            p = Shard(2) if Hq % mesh.size(i) == 0 else Replicate()
+        elif not (isinstance(p, Replicate) or p in (Shard(0), Shard(2))):
+            p = Replicate()
+        pl.append(p)
+    if pl != list(q.placements):
+        q = q.redistribute(mesh, pl)
+    kv_pl, kv_grad, heads, seq_dims = [], [], None, []
+    for i, p in enumerate(q.placements):
+        if p == Shard(2) and Hkv % mesh.size(i):
+            kv_pl.append(Replicate())
+            kv_grad.append(Partial())
+            heads = (mesh.get_local_rank(i), mesh.size(i))
+        elif kv_seq and isinstance(p, Replicate) and k.placements[i] == Shard(1):
+            kv_pl.append(Shard(1))
+            kv_grad.append(Shard(1))
+            seq_dims.append(i)
+        else:
+            kv_pl.append(p)
+            kv_grad.append(p)
+    k, v = (t if list(t.placements) == kv_pl else t.redistribute(mesh, kv_pl) for t in (k, v))
+    ql = q.to_local()
+    kl, vl = (t.to_local(grad_placements=kv_grad) for t in (k, v))
+    if heads is not None:
+        # the KV heads this rank's query heads read (query head h reads
+        # KV head h // (Hq // Hkv)), one copy per query head
+        r, n = heads
+        lo = r * (Hq // n)
+        kl, vl = (t.repeat_interleave(Hq // Hkv, dim=2)[:, :, lo:lo + Hq // n]
+                  for t in (kl, vl))
+    return ql, kl, vl, q, k, seq_dims
+
+
+def _wrap_like(out, q, D: int):
+    """A rank's local attention output as a DTensor placed like q."""
+    B, S, Hq = q.shape[:3]
+    return DTensor.from_local(out.contiguous(), q.device_mesh, q.placements, run_check=False,
+                              shape=(B, S, Hq, D), stride=(S * Hq * D, Hq * D, D, 1))
+
+
+def _sdpa_local(q, k, v, causal: bool):
+    """:func:`sdpa` on DTensors, each rank on its local shard
+    (:func:`_local_qkv`). The kernel is a ``ctypes`` launch, which DTensor
+    has no sharding rule for, so it runs on ``to_local()`` shards (padded
+    there, not as DTensors) and the result is wrapped back with q's
+    placements."""
+    ql, kl, vl, q, _, _ = _local_qkv(q, k, v)
+    return _wrap_like(_flash_padded(ql, kl, vl, causal), q, v.shape[-1])
+
+
+def _sdpa_cache_local(q, k, v, q_offset: int):
+    """Causal :func:`_sdpa_dense` of q against a cache (decode) on
+    DTensors, each rank on its local shards (:func:`_local_qkv`). A cache
+    whose sequence is split (the SP layout) is attended in parts, each rank
+    over the keys it holds, and combined as one softmax: the scores' max
+    and the exponentials' sum all-reduced over the sequence's mesh dims,
+    then each part's P.V summed. Without that split it is ``_sdpa_dense``
+    on the local tensors, the same ops as on one device."""
+    ql, kl, vl, q, k, seq_dims = _local_qkv(q, k, v, kv_seq=True)
+    if not seq_dims:
+        return _wrap_like(_sdpa_dense(ql, kl, vl, True, q_offset), q, v.shape[-1])
+    mesh = q.device_mesh
+    groups = [mesh.get_group(i) for i in seq_dims]
+    _, offset = compute_local_shape_and_global_offset(k.shape, mesh, k.placements)
+    S, H, Dh = ql.shape[1:]
+    if kl.shape[2] != H:
+        kl = kl.repeat_interleave(H // kl.shape[2], dim=2)
+        vl = vl.repeat_interleave(H // vl.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", ql, kl).float() / math.sqrt(Dh)
+    qi = torch.arange(S, device=ql.device)[:, None] + q_offset
+    ki = torch.arange(kl.shape[1], device=ql.device)[None, :] + offset[1]
+    s = s.masked_fill(~(qi >= ki), -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    for g in groups:
+        dist.all_reduce(m, dist.ReduceOp.MAX, group=g)
+    e = torch.exp(s - m)
+    total = e.sum(dim=-1, keepdim=True)
+    for g in groups:
+        dist.all_reduce(total, group=g)
+    out = torch.einsum("bhqk,bkhd->bqhd", (e / total).to(vl.dtype), vl)
+    for g in groups:
+        dist.all_reduce(out, group=g)
+    return _wrap_like(out, q, v.shape[-1])
+
+
+def write_seq(dst, src, start: int) -> None:
+    """``dst[:, start:start + S] = src`` in place, S = ``src.shape[1]``: a
+    cache write. On DTensors each rank writes the part of the span its own
+    shard of ``dst`` holds, so a sequence-sharded cache (long_500k's SP
+    layout) is written where it lives; slicing a sharded dim of a DTensor
+    would write into a gathered copy instead."""
+    if not isinstance(dst, DTensor):
+        dst[:, start:start + src.shape[1]] = src
+        return
+    mesh = dst.device_mesh
+    pl = [Replicate() if p == Shard(1) else p for p in dst.placements]
+    src_local = src.redistribute(mesh, pl).to_local()
+    shape, offset = compute_local_shape_and_global_offset(dst.shape, mesh, dst.placements)
+    lo, hi = offset[1], offset[1] + shape[1]
+    a, b = max(start, lo), min(start + src.shape[1], hi)
+    if a < b:
+        dst.to_local()[:, a - lo:b - lo] = src_local[:, a - start:b - start]
+
+
 def gqa_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cache_pos=None):
     """Returns (out, cache). cache: dict(k, v) of (B, S_max, Hkv, Dh),
     written in place."""
     B, S, _ = x.shape
     hd = cfg.hd
-    q = rotary((x @ p["q"]).reshape(B, S, cfg.n_heads, hd), positions, cfg.rope_theta)
-    k = rotary((x @ p["k"]).reshape(B, S, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
-    v = (x @ p["v"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = hint_heads(split_heads(x @ p["q"], cfg.n_heads))                # reference :260
+    k = hint_heads(split_heads(x @ p["k"], cfg.n_kv_heads))             # reference :261
+    v = hint_heads(split_heads(x @ p["v"], cfg.n_kv_heads))             # reference :262
+    q = rotary(q, positions, cfg.rope_theta)
+    k = rotary(k, positions, cfg.rope_theta)
     if cache is not None:
         k, v = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
-        cache["k"][:, cache_pos:cache_pos + S] = k
-        cache["v"][:, cache_pos:cache_pos + S] = v
+        write_seq(cache["k"], k, cache_pos)
+        write_seq(cache["v"], v, cache_pos)
         if cache_pos == 0:
             out = sdpa(q, k, v, causal=True)
         else:
-            out = _sdpa_dense(q, cache["k"], cache["v"], causal=True, q_offset=cache_pos)
+            ck, cv = cache["k"], cache["v"]
+            out = _sdpa_cache_local(q, ck, cv, cache_pos) if isinstance(q, DTensor) \
+                else _sdpa_dense(q, ck, cv, causal=True, q_offset=cache_pos)
     else:
         out = sdpa(q, k, v, causal=causal)
-    return out.reshape(B, S, cfg.n_heads * hd) @ p["o"], cache
+    out = hint_heads(out).reshape(B, S, cfg.n_heads * hd)              # reference :275
+    return hint(out @ p["o"], DP, None, None), cache                   # reference :276
 
 
 def mla_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cache_pos=None):
@@ -267,7 +517,7 @@ def mla_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cac
     hd, rd = cfg.hd, cfg.rope_head_dim
     H = cfg.n_heads
     cq = rms_norm(x @ p["q_down"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["q_up"]).reshape(B, S, H, hd + rd)
+    q = hint_heads(split_heads(cq @ p["q_up"], H))                      # reference :287
     q_nope, q_rope = q[..., :hd], rotary(q[..., hd:], positions, cfg.rope_theta)
 
     ckv_full = x @ p["kv_down"]                          # (B,S,kv_lora+rd)
@@ -276,8 +526,8 @@ def mla_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cac
                     cfg.rope_theta)[:, :, 0]
     if cache is not None:
         cc, cr = cache["c_kv"], cache["k_rope"]
-        cc[:, cache_pos:cache_pos + S] = c_kv.to(cc.dtype)
-        cr[:, cache_pos:cache_pos + S] = k_rope.to(cr.dtype)
+        write_seq(cc, c_kv.to(cc.dtype), cache_pos)
+        write_seq(cr, k_rope.to(cr.dtype), cache_pos)
         kv_up = p["kv_up"].reshape(cfg.kv_lora_rank, H, 2, hd)
         w_uk = kv_up[:, :, 0].permute(1, 0, 2)            # (H, kv_lora, hd)
         w_uv = kv_up[:, :, 1].permute(1, 0, 2)            # (H, kv_lora, hd)
@@ -293,15 +543,17 @@ def mla_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cac
         pr = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bhst,btk->bshk", pr.to(c_n.dtype), c_n)
         out = torch.einsum("bshk,hkd->bshd", ctx, w_uv.to(ctx.dtype))
-        return out.reshape(B, S, H * hd) @ p["o"], cache
+        out = hint_heads(out).reshape(B, S, H * hd)                    # reference :320
+        return hint(out @ p["o"], DP, None, None), cache               # reference :321
     c_n = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
-    kv = (c_n @ p["kv_up"]).reshape(B, -1, H, 2 * hd)
+    kv = hint_heads(split_heads(c_n @ p["kv_up"], H))                   # reference :325
     k_nope, v = kv[..., :hd], kv[..., hd:]
     k_rope_b = k_rope[:, :, None, :].expand(k_nope.shape[:3] + (rd,))
     k_full = torch.cat([k_nope, k_rope_b.to(k_nope.dtype)], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     out = sdpa(q_full, k_full, v, causal=causal)
-    return out.reshape(B, S, H * hd) @ p["o"], None
+    out = hint_heads(out).reshape(B, S, H * hd)                        # reference :332
+    return hint(out @ p["o"], DP, None, None), None                    # reference :333
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +571,9 @@ def mlp_params(cfg: ArchConfig, gen: torch.Generator, d_ff=None, dtype=torch.bfl
 
 
 def glu_mlp(cfg: ArchConfig, p, x):
-    return (_act(cfg.act)(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    act = _act(cfg.act)   # hints: reference :353-354
+    h = act(hint(x @ p["w_gate"], DP, None, "model")) * hint(x @ p["w_up"], DP, None, "model")
+    return hint(h @ p["w_down"], DP, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +614,11 @@ def _moe_group(cfg: ArchConfig, p, x2):
     scores = torch.softmax(x2.float() @ p["router"], dim=-1)
     gvals, gidx = torch.topk(scores, K, dim=-1)                 # (T,K)
     gvals = (gvals / gvals.sum(dim=-1, keepdim=True)).to(x2.dtype)
+    if isinstance(gidx, DTensor):
+        # the dispatch below is integer bookkeeping without a gradient
+        # (DTensor has no rule for searchsorted): it runs on the whole
+        # index tensor, the same on every rank
+        gidx = gidx.full_tensor()
 
     SL = T * K
     C = max(8, int(cfg.capacity_factor * SL / E))
@@ -371,18 +630,24 @@ def _moe_group(cfg: ArchConfig, p, x2):
                                                                   side="left")
     keep = pos < C
     dest = torch.where(keep, sorted_e * C + pos, torch.full_like(pos, E * C))  # drop slot
+    gathered = hint(x2[tok], DP, None)      # keep token copies dp-sharded (reference :427)
     buf = torch.zeros((E * C + 1, D), dtype=x2.dtype, device=x2.device)
-    buf.index_add_(0, dest, x2[tok])
-    xe = buf[: E * C].reshape(E, C, D)
+    buf = buf.index_add(0, dest, gathered)
+    xe = hint(buf[: E * C].reshape(E, C, D), "model", None, None)   # EP (reference :430)
 
     act = _act(cfg.act)
     h = act(torch.einsum("ecd,edf->ecf", xe, p["w_gate"])) * torch.einsum(
         "ecd,edf->ecf", xe, p["w_up"])
-    ye = torch.einsum("ecf,efd->ecd", h, p["w_down"]).reshape(E * C, D)
+    h = hint(h, "model", None, None)                                 # reference :436
+    ye = hint(torch.einsum("ecf,efd->ecd", h, p["w_down"]),          # reference :437
+              "model", None, None).reshape(E * C, D)
     ye = torch.cat([ye, ye.new_zeros((1, D))])
 
-    contrib = ye[dest] * gvals.reshape(SL)[perm][:, None] * keep[:, None].to(x2.dtype)
-    out = torch.zeros((T, D), dtype=x2.dtype, device=x2.device).index_add_(0, tok, contrib)
+    # reference :440-441
+    contrib = hint(ye[dest], DP, None) * gvals.reshape(SL)[perm][:, None] \
+        * keep[:, None].to(x2.dtype)
+    out = torch.zeros((T, D), dtype=x2.dtype, device=x2.device).index_add(0, tok, contrib)
+    out = hint(out, DP, None)
     if cfg.n_shared_experts:
         out = out + glu_mlp(cfg, p["shared"], x2)
     return out

@@ -43,6 +43,7 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from .. import device as devmod
@@ -225,11 +226,12 @@ def forward(cfg: ArchConfig, params, tokens, remat: bool = True,
             input_embeds: Optional[torch.Tensor] = None, return_hidden: bool = False):
     """tokens: (B,S) int (or ``input_embeds`` (B,S,D) for frontend stubs) ->
     logits (B,S,V), and the final-norm hidden states with ``return_hidden``."""
-    x = input_embeds if input_embeds is not None else params["embed"][tokens]
+    x = input_embeds if input_embeds is not None else L.embed(params["embed"], tokens)
+    x = L.hint(x, L.DP, None, None)                              # reference lm.py:152
     B, Sq = x.shape[:2]
     x = _blocks(cfg, params, x, _positions(B, Sq, 0, x.device), remat=remat)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = hidden @ _head(cfg, params)
+    logits = L.hint(hidden @ _head(cfg, params), L.DP, None, "model")   # reference lm.py:199
     return (logits, hidden) if return_hidden else logits
 
 
@@ -251,7 +253,7 @@ def loss_fn(cfg: ArchConfig, params, batch, remat: bool = True):
         mp = params["mtp"]
         B, Sq = inp.shape
         h = hidden[:, : Sq - 1]                                 # (B,S-1,D)
-        nxt = params["embed"][inp[:, 1:]].to(h.dtype)           # emb(t+1)
+        nxt = L.embed(params["embed"], inp[:, 1:]).to(h.dtype)           # emb(t+1)
         z = torch.cat([h, nxt], dim=-1) @ mp["proj"]
         z = _attn_block(cfg, mp["block"], z, _positions(B, Sq - 1, 0, z.device))
         z = L.rms_norm(z, mp["norm"], cfg.norm_eps)
@@ -265,7 +267,16 @@ def xent(logits, targets):
     selects the same value exactly)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)                       # (B,S)
-    tgt_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # the reference's one-hot contraction (lm.py:246), which stays
+        # sharded over the vocab ('model') axis; a gather there leaves a
+        # masked partial sum that DTensor's redistribution misapplies
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        onehot = L.hint((targets.long()[..., None] == vocab).to(logits.dtype),
+                        L.DP, None, "model")
+        tgt_logit = (logits * onehot).sum(dim=-1)
+    else:
+        tgt_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
     return (lse - tgt_logit).mean()
 
 
@@ -306,7 +317,7 @@ def prefill(cfg: ArchConfig, params, tokens, cache):
     """Run the prompt once, filling the cache. tokens: (B,S). Returns the
     last position's logits (B,1,V) and the cache."""
     B, Sq = tokens.shape
-    x = params["embed"][tokens]
+    x = L.embed(params["embed"], tokens)
     x = _blocks(cfg, params, x, _positions(B, Sq, 0, x.device), cache, 0)
     return _logits(cfg, params, x[:, -1:]), cache
 
@@ -315,6 +326,6 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
     """One decode step. tokens: (B, 1); pos: the current length. Attention
     archs attend over the KV cache; SSM archs update O(1) state. Returns
     (logits (B,1,V), cache)."""
-    x = params["embed"][tokens]
+    x = L.embed(params["embed"], tokens)
     x = _blocks(cfg, params, x, _positions(x.shape[0], 1, pos, x.device), cache, pos)
     return _logits(cfg, params, x), cache

@@ -17,9 +17,10 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .config import ArchConfig
-from .layers import dense_init, normal, ones
+from .layers import DP, dense_init, hint, normal, ones
 
 SSM_CHUNK = 256
 
@@ -86,7 +87,7 @@ def mamba1_block(cfg: ArchConfig, p, x, state=None):
 
     state: None (train/prefill) or dict(conv, h) for decode.
     """
-    xz = x @ p["in_proj"]
+    xz = hint(x @ p["in_proj"], DP, None, "model")              # reference ssm.py:124
     di = cfg.d_inner
     xs, z = xz[..., :di], xz[..., di:]
     conv_state = None if state is None else state["conv"]
@@ -182,12 +183,36 @@ def mamba2_ssd(x, a_log, Bm, Cm, h0=None, chunk=SSM_CHUNK):
     return y, h
 
 
+def _ssd(x, a_log, Bm, Cm, h0=None):
+    """:func:`mamba2_ssd`; on DTensors each rank scans its own batch rows,
+    every head (the chunked form's six-dim einsums flatten a sharded head
+    dim, which sharding propagation refuses on some PyTorch releases): the
+    operands are laid out by batch where x is, whole elsewhere."""
+    if not isinstance(x, DTensor):
+        return mamba2_ssd(x, a_log, Bm, Cm, h0)
+    mesh = x.device_mesh
+    pl = [Shard(0) if p == Shard(0) else Replicate() for p in x.placements]
+    local = lambda t: t.redistribute(mesh, pl).to_local()
+    y, h = mamba2_ssd(local(x), local(a_log), local(Bm), local(Cm),
+                      None if h0 is None else local(h0))
+
+    def wrap(t, shape):
+        stride = [1] * len(shape)
+        for i in range(len(shape) - 2, -1, -1):
+            stride[i] = stride[i + 1] * shape[i + 1]
+        return DTensor.from_local(t.contiguous(), mesh, pl, run_check=False,
+                                  shape=torch.Size(shape), stride=tuple(stride))
+
+    B, S, H, P = x.shape
+    return wrap(y, (B, S, H, P)), wrap(h, (B, H, P, Bm.shape[-1]))
+
+
 def mamba2_block(cfg: ArchConfig, p, x, state=None):
     B, S, _ = x.shape
     di, N = cfg.d_inner, cfg.ssm_state
     H = di // cfg.ssm_head_dim
     P = cfg.ssm_head_dim
-    proj = x @ p["in_proj"]
+    proj = hint(x @ p["in_proj"], DP, None, "model")            # reference ssm.py:237
     z = proj[..., :di]
     xBC = proj[..., di:2 * di + 2 * N]
     dt_raw = proj[..., 2 * di + 2 * N:]                          # (B,S,H)
@@ -201,7 +226,7 @@ def mamba2_block(cfg: ArchConfig, p, x, state=None):
     a_log = -torch.exp(p["A_log"])[None, None, :] * dt           # (B,S,H) <= 0
     h0 = None if state is None else state["h"]
     # ZOH discretization: h = exp(dt*A) h + dt * B x  (input absorbs dt)
-    y, hT = mamba2_ssd(xs.float() * dt[..., None], a_log, Bm, Cm, h0)
+    y, hT = _ssd(xs.float() * dt[..., None], a_log, Bm, Cm, h0)
     y = y + xs.float() * p["D"][None, None, :, None]             # skip path
     y = y.reshape(B, S, di)
     # gated RMSNorm (mamba2)

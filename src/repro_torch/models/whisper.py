@@ -105,7 +105,7 @@ def _dec_block(cfg, lp, x, positions, enc_out):
 def decode_train(cfg: ArchConfig, params, tokens, enc_out, remat: bool = True):
     """Teacher-forced decoder pass. tokens: (B, S_dec) -> logits (B, S_dec, V)."""
     B, S = tokens.shape
-    x = params["tok_embed"][tokens]
+    x = L.embed(params["tok_embed"], tokens)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for lp in params["dec_layers"]:
         x = remat_call(remat, functools.partial(_dec_block, cfg, lp), x, positions, enc_out)
@@ -150,7 +150,7 @@ def prefill(cfg: ArchConfig, params, frames, cache):
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
     """One decoder token. tokens: (B,1)."""
     B = tokens.shape[0]
-    x = params["tok_embed"][tokens]
+    x = L.embed(params["tok_embed"], tokens)
     positions = torch.full((B, 1), pos, device=x.device)
     for i, lp in enumerate(params["dec_layers"]):
         h, _ = L.gqa_attention(cfg, lp["self_attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),

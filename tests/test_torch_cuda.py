@@ -626,3 +626,43 @@ def test_smoke_train_step_on_the_card(arch, cuda_device):
     blocks = {"audio": cfg.n_enc_layers + 2 * cfg.n_dec_layers, "ssm": 0,
               "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}.get(cfg.family, cfg.n_layers)
     assert launched == {"wgmma": 2 * blocks + (1 if cfg.mtp_depth else 0), "wgmma3": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_on_head_sharded_dtensors(dtype, cuda_device):
+    """``layers.sdpa`` on DTensors over a 1x1 NCCL mesh, batch on 'data'
+    and heads on 'model' (as ``hint_heads`` leaves them): the kernel runs
+    on each rank's local shard and the result comes back with q's
+    placements, equal to the plain-tensor call's output and gradients
+    bit for bit, one kernel launch of the dtype's design per call."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.launch import mesh as rmesh
+    from repro_torch.models import layers
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = rmesh.make_smoke_mesh(device=cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        q, k, v = (torch.randn((2, 64, h, 64), generator=gen, device=cuda_device).to(dtype)
+                   for h in (8, 2, 2))
+        placements = (Shard(0), Shard(2))
+        dq, dk, dv = (distribute_tensor(t, mesh, placements).requires_grad_(True)
+                      for t in (q, k, v))
+        before = dict(kfa.flash_attention.launches_by_design)
+        out = layers.sdpa(dq, dk, dv, causal=True)
+        launched = {d: kfa.flash_attention.launches_by_design[d] - before[d] for d in before}
+        assert tuple(out.placements) == placements
+        assert launched[kfa.DESIGNS[dtype]] == 1 and sum(launched.values()) == 1
+        pq, pk, pv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        want = layers.sdpa(pq, pk, pv, causal=True)
+        assert torch.equal(out.full_tensor(), want)
+        grad = torch.randn(want.shape, generator=gen, device=cuda_device).to(dtype)
+        out.backward(distribute_tensor(grad, mesh, placements))
+        want.backward(grad)
+        for a, b in ((dq, pq), (dk, pk), (dv, pv)):
+            assert torch.equal(a.grad.full_tensor(), b.grad)
+    finally:
+        dist.destroy_process_group()

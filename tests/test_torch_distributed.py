@@ -1,0 +1,329 @@
+"""PyTorch port: sharded steps over real collectives against the unsharded
+step.
+
+Four spawned processes form a ``gloo`` process group (a FileStore in the
+test's temporary directory, so no port is chosen by hand) and a 2x2
+("data", "model") DeviceMesh on the CPU. The weights are the reference's
+(``repro.models.api.init_params`` in fp32, turned into the port's model by
+``params_from_numpy``); the unsharded port step is held to the reference
+by ``tests/test_torch_train.py``. On the reference's SPMD cells
+(``tests/test_distribution.py``: TinyLlama, Qwen3-MoE and Falcon-Mamba
+smoke configs at ``ShapeConfig("t", 64, 8, "train")``), and on the other
+seven smoke configs at the same shape:
+
+* one bundle train step (``launch.steps.make_train_step(cfg, shape,
+  mesh)``, AdamW) equals the unsharded step on the same weights and batch:
+  loss and grad norm within ``REL`` = 1e-5 relative (measured 1e-7), both
+  AdamW moments (the gradient and its square) within ``REL`` of the leaf's
+  largest magnitude (measured 5.3e-6 at most), every updated parameter
+  within ``REL_PARAMS`` = 5e-3 of it (see ``REL_PARAMS``) and within
+  ``SELF_REL`` of the AdamW update of the sharded step's own moments, and
+  ``CommDebugMode`` counts
+  all-gathers, reduce-scatters or all-reduces, as the reference asserts
+  ``has_collectives``;
+* TinyLlama's prefill and decode bundles at B = 4 (batch-sharded cache)
+  and B = 1 (sequence-sharded cache) give the unsharded logits within
+  ``REL`` of their largest magnitude, greedy ids equal;
+* ``Trainer.reshard`` from 2x2 to 1x4 leaves the gathered parameters and
+  optimizer state bit-equal, laid out by the new mesh's placements.
+
+Each test spawns its own group, destroys it, and joins its processes
+within ``TIMEOUT`` seconds.
+"""
+import os
+import pickle
+import time
+import traceback
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+WORLD = 4
+TIMEOUT = 240
+REL = 1e-5
+# AdamW's first step divides each gradient element by its own magnitude
+# (u = g / (|g| + eps)), so where a gradient element is near eps the fp32
+# rounding of the gradient moves the parameter by up to lr * O(1): the
+# updated parameters get a looser gate against the unsharded step than the
+# gradients (the moments) do (measured: 9.1e-4 for Zamba2, 2.1e-4 at most
+# for the others), and a tight one against the AdamW update of the sharded
+# step's own moments (SELF_REL; measured 0.0: each gradient is reduced to
+# its parameter's layout before the update, launch.steps.value_and_grad).
+REL_PARAMS = 5e-3
+SELF_REL = 1e-6
+TRAIN_SHAPE = ("t", 64, 8, "train")
+SPMD_ARCHS = ["tinyllama_1_1b", "qwen3_moe_30b_a3b", "falcon_mamba_7b"]
+#: the other configs, each family's sharded path (MLA + MTP, Mamba2 with the
+#: shared attention block, the encoder-decoder, GQA widths that the 2-way
+#: 'model' axis does and does not divide)
+OTHER_ARCHS = ["pixtral_12b", "deepseek_v3_671b", "zamba2_7b", "gemma_7b", "granite_8b",
+               "smollm_360m", "whisper_base"]
+
+
+# ---------------------------------------------------------------------------
+# harness: the parent writes the inputs, the ranks run a job, rank 0 reports
+# ---------------------------------------------------------------------------
+
+
+def _ref_inputs(arch, path, batch=8, seq=64):
+    """The reference's fp32 weights and a batch, as numpy, pickled."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.models import api as japi
+
+    cfg = jconfigs.get_smoke_config(arch)
+    params = jax.tree_util.tree_map(
+        np.asarray, japi.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32))
+    batch = {k: np.asarray(v, np.float32 if k == "frames" else np.int64) for k, v in
+             japi.make_train_batch(cfg, batch, seq, np.random.default_rng(0)).items()}
+    with open(path, "wb") as f:
+        pickle.dump({"params": params, "batch": batch, "tokens": batch["tokens"]}, f)
+
+
+def _rank_main(rank, job, arch, tmp, extra):
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(tmp, "store"), WORLD)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=WORLD)
+    try:
+        with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+            inputs = pickle.load(f)
+        out = JOBS[job](arch, inputs, extra)
+        err = None
+    except Exception:
+        out, err = None, traceback.format_exc()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"result_{rank}.pkl"), "wb") as f:
+        pickle.dump({"out": out, "err": err}, f)
+
+
+def _spawn(job, arch, tmp, extra=None):
+    """Run ``job`` on WORLD ranks; rank 0's result (any rank's error raises)."""
+    ctx = mp.start_processes(_rank_main, args=(job, arch, str(tmp), extra), nprocs=WORLD,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + TIMEOUT
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{job}[{arch}] ran past {TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    results = []
+    for r in range(WORLD):
+        with open(os.path.join(tmp, f"result_{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    errs = [r["err"] for r in results if r["err"]]
+    assert not errs, errs[0]
+    return results[0]["out"]
+
+
+def _model(arch, inputs):
+    from repro_torch import configs as tconfigs
+    from repro_torch.models import api as tapi
+
+    cfg = tconfigs.get_smoke_config(arch)
+    return cfg, tapi.params_from_numpy(cfg, inputs["params"], device="cpu")
+
+
+def _mesh(shape=(2, 2)):
+    from repro_torch.launch import mesh as tmesh
+
+    return tmesh.make_mesh(shape, ("data", "model"), device="cpu")
+
+
+def _rel(a, b):
+    """max |a - b| over max |b| (gathering a DTensor: every rank calls it)."""
+    from repro_torch.launch.sharding import gather
+
+    a, b = gather(a).detach().float(), gather(b).detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+# ---------------------------------------------------------------------------
+# jobs (run on every rank)
+# ---------------------------------------------------------------------------
+
+
+def _job_train(arch, inputs, _extra):
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch import steps
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg, model = _model(arch, inputs)
+    shape = ShapeConfig(*TRAIN_SHAPE)
+    batch = {k: torch.from_numpy(v) for k, v in inputs["batch"].items()}
+    kw = dict(optimizer="adamw", lr=1e-3, warmup=0, total_steps=10)
+    opt_state = make_optimizer("adamw").init(model.tree())
+
+    plain = steps.make_train_step(cfg, shape, **kw)
+    p_model, p_opt, p_metrics = plain(model, opt_state, batch, 0)
+
+    bundle = steps.make_train_step(cfg, shape, _mesh(), **kw)
+    with CommDebugMode() as comm:
+        s_model, s_opt, s_metrics = bundle.fn(model, opt_state, batch, 0)
+    counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
+    # the AdamW update (optim.adamw_update, step 1) of the sharded moments
+    lr, (b1, b2, eps, wd) = s_metrics["lr"], (0.9, 0.95, 1e-8, 0.1)
+    bc1, bc2 = 1 - b1 ** torch.ones(()), 1 - b2 ** torch.ones(())
+
+    def adamw(p, m, v):
+        m, v = (t.full_tensor() for t in (m, v))
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps) + wd * p.float()
+        return (p.float() - lr * u).to(p.dtype)
+    sharded = sum(1 for p in s_model.parameters()
+                  if any(not pl.is_replicate() for pl in p.placements))
+    return {
+        "loss": (float(s_metrics["loss"]), float(p_metrics["loss"])),
+        "grad_norm": (float(s_metrics["grad_norm"]), float(p_metrics["grad_norm"])),
+        "params": max(_rel(a, b) for a, b in zip(tree_leaves(s_model.tree()),
+                                                  tree_leaves(p_model.tree()))),
+        "self": max(_rel(a, adamw(p, m, v)) for a, p, m, v in zip(
+            tree_leaves(s_model.tree()), tree_leaves(model.tree()), tree_leaves(s_opt["m"]),
+            tree_leaves(s_opt["v"]))),
+        "m": max(_rel(a, b) for a, b in zip(tree_leaves(s_opt["m"]), tree_leaves(p_opt["m"]))),
+        "v": max(_rel(a, b) for a, b in zip(tree_leaves(s_opt["v"]), tree_leaves(p_opt["v"]))),
+        "moved": max(float((a - b).abs().max()) for a, b in zip(tree_leaves(p_model.tree()),
+                                                                 tree_leaves(model.tree()))),
+        "counts": counts,
+        "sharded_leaves": sharded,
+        "leaves": len(list(s_model.parameters())),
+    }
+
+
+def _job_serve(arch, inputs, batch):
+    from repro_torch.launch import steps
+    from repro_torch.models import api as tapi
+    from repro_torch.models.config import ShapeConfig
+
+    cfg, model = _model(arch, inputs)
+    S, G = 16, 4
+    shape = ShapeConfig("s", S + G, batch, "decode")
+    mesh = _mesh()
+    prefill = steps.make_serve_step(cfg, shape, mesh, "prefill")
+    decode = steps.make_serve_step(cfg, shape, mesh, "decode")
+    prompt = torch.from_numpy(inputs["tokens"][:batch, :S])
+    cache = tapi.init_cache(cfg, batch, S + G, torch.float32, "cpu")
+    ref_cache = tapi.init_cache(cfg, batch, S + G, torch.float32, "cpu")
+
+    logits, cache = prefill.fn(model, {"tokens": prompt}, cache)
+    with torch.no_grad():
+        ref, ref_cache = tapi.prefill(cfg, model, prompt, ref_cache)
+    errs, same_ids = [_rel(logits, ref)], True
+    placements = {"logits": str(logits.placements),
+                  "cache": {k: str(v.placements) for k, v in cache.items()}}
+    tok = ref[:, -1].argmax(-1, keepdim=True)
+    for i in range(G - 1):
+        logits, cache = decode.fn(model, cache, tok, S + i)
+        with torch.no_grad():
+            ref, ref_cache = tapi.decode_step(cfg, model, ref_cache, tok, S + i)
+        errs.append(_rel(logits, ref))
+        full = logits.full_tensor()
+        same_ids &= bool(torch.equal(full[:, -1].argmax(-1), ref[:, -1].argmax(-1)))
+        tok = ref[:, -1].argmax(-1, keepdim=True)
+    return {"errs": errs, "same_ids": same_ids, "placements": placements}
+
+
+def _job_reshard(arch, inputs, tmp):
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg, _ = _model(arch, inputs)
+    shape = ShapeConfig(*TRAIN_SHAPE)
+    trainer = Trainer(cfg, shape, SyntheticLM(cfg.vocab, 8, 64, seed=0),
+                      TrainerConfig(ckpt_dir=os.path.join(tmp, f"ckpt_{dist.get_rank()}"),
+                                    lr=1e-3, warmup=0, max_steps=4),
+                      optimizer="adamw", mesh=_mesh((2, 2)))
+    params, opt = trainer.init_state(0)
+    batch = {"tokens": torch.from_numpy(inputs["tokens"])}
+    params, opt, _ = trainer.step_fn(params, opt, batch, 0)    # moments not zero
+    leaves = lambda p, o: tree_leaves(p.tree()) + tree_leaves(o["m"]) + tree_leaves(o["v"])
+    before = [shd.gather(t).detach().clone() for t in leaves(params, opt)]
+    params, opt = trainer.reshard(_mesh((1, 4)), params, opt)
+    after = leaves(params, opt)
+    placed = all(tuple(t.placements) == p for t, p in zip(
+        tree_leaves(params.tree()), _placements(params.tree(), trainer.bundle.in_placements[0])))
+    equal = all(torch.equal(shd.gather(a), b) for a, b in zip(after, before))
+    mesh_shape = tuple(after[0].device_mesh.mesh.shape)
+    _, _, metrics = trainer.step_fn(params, opt, batch, 1)
+    return {"equal": equal, "placed": placed, "mesh": mesh_shape,
+            "loss_after": float(metrics["loss"])}
+
+
+def _placements(tree, pl):
+    """``pl``'s placement tuples in ``tree``'s leaf order."""
+    from repro_torch.optim.optimizers import tree_map
+
+    out = []
+    tree_map(lambda _, p: out.append(p), tree, pl)
+    return out
+
+
+JOBS = {"train": _job_train, "serve": _job_serve, "reshard": _job_reshard}
+
+
+# ---------------------------------------------------------------------------
+# tests
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def inputs(tmp_path, request):
+    arch = getattr(request, "param", "tinyllama_1_1b")
+    _ref_inputs(arch, tmp_path / "inputs.pkl")
+    return arch, tmp_path
+
+
+@pytest.mark.parametrize("inputs", SPMD_ARCHS + OTHER_ARCHS, indirect=True)
+def test_sharded_train_step_equals_unsharded(inputs):
+    arch, tmp = inputs
+    r = _spawn("train", arch, tmp)
+    for key in ("loss", "grad_norm"):
+        got, want = r[key]
+        assert np.isfinite(got) and abs(got - want) <= REL * abs(want), (key, got, want)
+    assert r["m"] <= REL and r["v"] <= REL, r
+    assert r["params"] <= REL_PARAMS and r["self"] <= SELF_REL, (r["params"], r["self"])
+    assert r["moved"] > 1e-4, r                 # the step changed the weights (lr 1e-3)
+    assert r["sharded_leaves"] > 0, r
+    coll = sum(r["counts"].get(k, 0) for k in ("all_gather_into_tensor", "reduce_scatter_tensor",
+                                                 "all_reduce"))
+    assert coll > 0, r["counts"]
+
+
+@pytest.mark.parametrize("batch", [4, 1])
+def test_sharded_prefill_and_decode_equal_unsharded(tmp_path, batch):
+    _ref_inputs("tinyllama_1_1b", tmp_path / "inputs.pkl")
+    r = _spawn("serve", "tinyllama_1_1b", tmp_path, batch)
+    assert max(r["errs"]) <= REL, r
+    assert r["same_ids"], r
+    # B = 4 splits the cache's batch over 'data'; B = 1 its sequence (SP)
+    want = "Shard(dim=1)" if batch == 4 else "Shard(dim=2)"
+    assert all(p.startswith(f"({want}") for p in r["placements"]["cache"].values()), r
+
+
+def test_reshard_2x2_to_1x4_is_bit_equal(inputs):
+    arch, tmp = inputs
+    r = _spawn("reshard", arch, tmp, str(tmp))
+    assert r["equal"] and r["placed"] and r["mesh"] == (1, 4), r
+    assert np.isfinite(r["loss_after"]), r
+
+
+def test_mesh_without_a_process_group_raises():
+    from repro_torch.launch import mesh as tmesh
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        tmesh.make_mesh((2, 2), ("data", "model"), device="cpu")

@@ -42,6 +42,8 @@ SLICE_MODULES = [
     "repro_torch.runtime.trainer",
     "repro_torch.launch.steps",
     "repro_torch.launch.train",
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.sharding",
     "repro_torch.examples",
     "repro_torch.examples.quickstart",
     "repro_torch.examples.numerics_codesign",
@@ -162,6 +164,24 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
+
+
+def test_meshes_default_to_cuda(monkeypatch):
+    """A mesh's device type comes from ``device.resolve``: without a
+    device argument it is the GPU, and a host without CUDA raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch import mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mesh.make_smoke_mesh()
+        assert mesh.make_smoke_mesh(device="cpu").device_type == "cpu"
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("launcher", ["table1", "lint"])
