@@ -83,7 +83,7 @@ without one). Phases, one line each:
              shapes in bf16 (wgmma) and fp32 (wgmma3), at the fp32
              forward's S = 1055 and the smoke config's shape (so every
              main-path fp32 launch has a measured time) and at the
-             Granite/Qwen3 shape in bf16, each
+             Granite/Qwen3 shape and the trainer's (phase 15) in bf16, each
              with the bound with P.V at the fp32 rate (fp32 inputs: both
              products), the split bound (Q.K^T and P.V as exact bf16
              products on the tensor cores: 4 GEMM-equivalents for bf16, 12
@@ -163,6 +163,16 @@ without one). Phases, one line each:
              through ``make_serve_step`` at lm_serve's shapes (gates:
              greedy ids equal ``launch.serve.generate``'s, 22 wgmma
              launches in prefill); every process group destroyed
+17. dryrun   ``launch.dryrun`` on the card's host (its own PyTorch release):
+             TinyLlama-1.1B's train_4k, prefill_32k and decode_32k cells,
+             Zamba2-7B's long_500k (hybrid) and Falcon-Mamba-7B's
+             decode_32k (SSM) at 16x16 over a fake process group of 256,
+             meta tensors: seconds, FLOPs per device, collective bytes,
+             resident bytes, the roofline bound on the H100's published
+             peaks (``roofline.analysis``); gate: every cell "ok". Then the
+             roofline bound of phase 14's own step (TinyLlama-1.1B, one
+             device, 4 x 1024, AdamW, counted on meta tensors) beside the
+             s/step phase 14 measured, and their ratio. No kernel runs.
 
 Every count of kernel launches is set to 0 just before a path runs and read
 just after it. Then one JSON line with an entry per kernel and per design of
@@ -235,6 +245,13 @@ TRAIN_GRAD_WRONG = ("non_causal", "scale_x1.1")
 #: 2 sharded train steps at lm_train's shapes, then prefill + 8 decode steps
 #: at lm_serve's
 DIST_ARCH, DIST_STEPS, DIST_DECODE = LM_ARCH, 2, 8
+#: the dry-run's cells on the card's host (16x16): TinyLlama's three, a
+#: hybrid and an SSM cell. No MoE cell: on the card's PyTorch release every
+#: Qwen3-MoE and DeepSeek-V3 cell tried fails in the MoE dispatch's
+#: index_add (ROADMAP Queue 3)
+DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k"), ("tinyllama_1_1b", "prefill_32k"),
+                ("tinyllama_1_1b", "decode_32k"), ("zamba2_7b", "long_500k"),
+                ("falcon_mamba_7b", "decode_32k"))
 
 N_EVAL = 40
 TRAIN_STEPS = 600
@@ -915,6 +932,56 @@ def distributed_phase(dev, zero_counts, read_counts, report: dict, smi: str) -> 
     phase("distributed_done", phase_s=f"{time.perf_counter() - t_phase:.2f}")
 
 
+def dryrun_phase(report: dict, smi: str) -> None:
+    """Phase 17: the dry-run's cells on the card's host, and the roofline
+    bound of phase 14's step beside its measured s/step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import SHAPES, ShapeConfig
+    from repro_torch.roofline import analysis
+
+    t_phase = time.perf_counter()
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        c = dryrun.run_cell(arch, shape)
+        cells.append(c)
+        fields = {"status": c["status"], "seconds": c["seconds"]}
+        if c["status"] == "ok":
+            terms = analysis.roofline_terms(c, get_config(arch), SHAPES[shape])
+            c["roofline"] = terms
+            fields.update(acct_flops=f"{c['acct_flops']:.4e}",
+                          collective_gb=f"{c['collectives']['bytes']['total'] / 1e9:.3f}",
+                          resident_gb=f"{c['resident_bytes_per_dev'] / 1e9:.3f}",
+                          fits_h100=c["fits_h100"],
+                          bound_ms=f"{terms['roofline_bound_s'] * 1e3:.3f}",
+                          dominant=terms["dominant"], trips=c["trips"])
+        else:
+            fields["error"] = c["error"][:200]
+        phase("dryrun_cell", arch=arch, shape=shape, mesh=c["mesh"], **fields)
+    cfg = get_config(LM_ARCH)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    step = dryrun.one_device_train_cell(cfg, shape, "adamw")
+    terms = analysis.roofline_terms(step, cfg, shape)
+    measured = report["lm_train"]["s_per_step"]
+    phase("dryrun_lm_train_roofline", arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+          flops=f"{step['acct_flops']:.4e}", bytes_gb=f"{step['acct_bytes'] / 1e9:.3f}",
+          t_compute_ms=f"{terms['t_compute_s'] * 1e3:.3f}",
+          t_memory_ms=f"{terms['t_memory_s'] * 1e3:.3f}",
+          bound_ms=f"{terms['roofline_bound_s'] * 1e3:.3f}", dominant=terms["dominant"],
+          measured_s_per_step=f"{measured:.4f}",
+          measured_over_bound=f"{measured / terms['roofline_bound_s']:.2f}",
+          count_s=f"{time.perf_counter() - t0:.2f}", peaks="h100_sxm_published",
+          card=smi.replace(" ", "_"))
+    report["dryrun"] = {"cells": cells, "lm_train_step": step, "lm_train_roofline": terms,
+                        "lm_train_measured_s_per_step": measured, "card": smi,
+                        "phase_s": time.perf_counter() - t_phase}
+    failed = [f"{c['arch']}:{c['shape']}" for c in cells if c["status"] != "ok"]
+    if failed:
+        raise AssertionError(f"dry-run cells failed: {failed}")
+    phase("dryrun_done", phase_s=f"{time.perf_counter() - t_phase:.2f}")
+
+
 def main() -> int:
     import copy
 
@@ -1144,6 +1211,8 @@ def main() -> int:
         "zamba2": (1, 32, 32, 512, 512, 112, True),
         "gemma": (1, 16, 16, 512, 512, 256, True),
         "mla_v_padded": (1, 16, 16, 256, 256, 192, True),
+        # phase 15's trainer (SmolLM smoke, head dim 20 padded to 24)
+        "smollm_trainer": (4, 3, 1, 32, 32, 24, True),
     }
     flash_cases = {}
     for name, (B, Hq, Hkv, S, Sk, D, causal) in flash_shapes.items():
@@ -1609,7 +1678,7 @@ def main() -> int:
 
     flash_timed = ("tinyllama_prefill_bf16", "granite_qwen3_bf16", "tinyllama_prefill_fp32",
                    "tinyllama_forward_fp32", "tinyllama_smoke_fp32", "gemma_bf16",
-                   "gemma_fp32")
+                   "gemma_fp32", "smollm_trainer_bf16")
     for n in flash_timed:
         args, causal = flash_cases[n]
         timed.append(("flash_attention", n,
@@ -1813,6 +1882,8 @@ def main() -> int:
     trainer_phase(dev, zero_counts, read_counts, report, out_dir)
     # 16. the sharding layer on the card
     distributed_phase(dev, zero_counts, read_counts, report, smi)
+    # 17. the dry-run and the roofline (no kernel runs)
+    dryrun_phase(report, smi)
 
     # the kernel line, one entry per CUDA source and per design of
     # flash_attention (bf16 and fp32, both from flash_attention_sm90.cu): the

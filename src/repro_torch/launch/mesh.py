@@ -42,9 +42,17 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> DeviceMesh:
     return make_mesh(shape, axes, device)
 
 
-def make_smoke_mesh(device=None) -> DeviceMesh:
-    """Single-device mesh (axes sized 1)."""
-    return make_mesh((1, 1), ("data", "model"), device)
+def make_smoke_mesh(device=None, group=None) -> DeviceMesh:
+    """Single-device mesh (axes sized 1): over the initialised process group
+    of world size 1, or over ``group``, a group of this rank alone inside a
+    larger world (``dist.new_group([rank])``)."""
+    if group is None:
+        return make_mesh((1, 1), ("data", "model"), device)
+    if group.size() != 1:
+        raise RuntimeError(f"a 1x1 mesh needs a group of one rank, this one has {group.size()}")
+    dev = devmod.resolve(device)
+    return DeviceMesh.from_group([group, group], dev.type, mesh=[[dist.get_rank()]],
+                                 mesh_dim_names=("data", "model"))
 
 
 def axis_sizes(mesh) -> dict:

@@ -26,6 +26,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from ..models.config import ArchConfig
 from ..models.api import STACKED
@@ -267,10 +268,16 @@ def to_placements_tree(spec_tree, mesh):
 def place(t: torch.Tensor, placements: Tuple, mesh) -> DTensor:
     """``t`` (the whole tensor, the same on every rank) as a DTensor with
     ``placements``; a DTensor is redistributed instead (and returned as it
-    is when it has them already)."""
+    is when it has them already). A meta tensor (shapes only: the dry-run)
+    becomes a DTensor over an empty meta shard of this rank's local shape;
+    nothing is copied."""
     placements = tuple(placements)
     if isinstance(t, DTensor):
         return t if tuple(t.placements) == placements else t.redistribute(mesh, placements)
+    if t.device.type == "meta":
+        local, _ = compute_local_shape_and_global_offset(t.shape, mesh, placements)
+        return DTensor.from_local(t.new_empty(local), mesh, placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
     return distribute_tensor(t.to(mesh.device_type), mesh, placements)
 
 

@@ -164,14 +164,15 @@ def _step_fn(cfg: ArchConfig, opt, mb: int, lr: float, warmup: int, total_steps:
 
     def train_step(model: lm.Model, opt_state, batch, step):
         if mb > 1:
-            # gradient accumulation over microbatches; grads in f32
-            gsum, lsum = None, 0.0
-            for i in range(mb):
-                micro = {k: v.chunk(mb)[i] for k, v in batch.items()}
-                lv, g = value_and_grad(cfg, model, micro)
+            # gradient accumulation over microbatches (the reference's
+            # lax.scan, steps.py:94); grads in f32
+            def accumulate(carry, i):
+                gsum, lsum = carry
+                lv, g = value_and_grad(cfg, model, {k: v.chunk(mb)[i] for k, v in batch.items()})
                 g32 = tree_map(lambda a: a.float(), g)
-                gsum = g32 if gsum is None else tree_map(torch.add, gsum, g32)
-                lsum = lsum + lv
+                return (g32 if gsum is None else tree_map(torch.add, gsum, g32), lsum + lv), None
+
+            (gsum, lsum), _ = mlayers.scan(accumulate, (None, 0.0), mb)
             grads = tree_map(lambda g: g / mb, gsum)
             lvalue = lsum / mb
         else:

@@ -6,11 +6,18 @@
 Port of ``repro/launch/train.py`` (``--device``, default the GPU; a host
 without CUDA raises, ``--device cpu`` runs there). ``--smoke`` selects the
 reduced same-family config; without it the full published config is used.
-The mesh is the production mesh (``--multi-pod``: 2x16x16) when a process
-group of world size > 1 is initialised, as ``torchrun`` sets one up
-(``torchrun --nproc-per-node 8 -m repro_torch.launch.train ...`` on each
-host), else the 1x1 smoke mesh over a process group of one that this
-launcher starts itself.
+
+The mesh follows the reference's rule (``src/repro/launch/train.py:39``):
+the production mesh (``--multi-pod``: 2x16x16) with at least 256 devices,
+else the 1x1 smoke mesh, one device. Here the devices are the ranks of the
+process group ``torchrun`` sets up (``torchrun --nproc-per-node 8 -m
+repro_torch.launch.train ...`` on each host), or a group of one that this
+launcher starts itself. At world sizes 2-255 rank 0 trains alone on a 1x1
+mesh of its own device (a process group of rank 0 only, which every rank
+helps make); the other ranks have nothing to run and return at once
+(``main`` gives them None), and ``torchrun``'s job ends with rank 0's
+training. The production mesh needs the world size to be its own, 256 (or
+512 with ``--multi-pod``): ``launch/mesh.py`` raises otherwise.
 """
 from __future__ import annotations
 
@@ -43,6 +50,23 @@ def _process_group(dev) -> bool:
     return True
 
 
+#: the reference's device count for the production mesh (its train.py:39)
+PRODUCTION_DEVICES = 256
+
+
+def _mesh(dev, multi_pod: bool):
+    """The production mesh with at least PRODUCTION_DEVICES ranks, else a
+    1x1 mesh: over the whole group at world size 1, over rank 0 alone
+    otherwise (None on the other ranks)."""
+    world = dist.get_world_size()
+    if world >= PRODUCTION_DEVICES:
+        return make_production_mesh(multi_pod=multi_pod, device=dev)
+    if world == 1:
+        return make_smoke_mesh(device=dev)
+    group = dist.new_group([0])     # a collective: every rank makes it
+    return make_smoke_mesh(device=dev, group=group) if dist.get_rank() == 0 else None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
@@ -63,12 +87,13 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     shape = ShapeConfig("train", seq_len=args.seq, global_batch=args.batch, kind="train")
     data = SyntheticLM(cfg.vocab, args.batch, args.seq, seed=0)
-    ckpt = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_ckpt_")
     try:
-        if dist.get_world_size() > 1:
-            mesh = make_production_mesh(multi_pod=args.multi_pod, device=dev)
-        else:
-            mesh = make_smoke_mesh(device=dev)
+        mesh = _mesh(dev, args.multi_pod)
+        if mesh is None:
+            print(f"rank {dist.get_rank()} of {dist.get_world_size()}: fewer than "
+                  f"{PRODUCTION_DEVICES} devices, rank 0 trains on one")
+            return None
+        ckpt = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_ckpt_")
         trainer = Trainer(
             cfg, shape, data,
             TrainerConfig(ckpt_dir=ckpt, ckpt_every=args.ckpt_every,

@@ -35,9 +35,14 @@ reference's activation-sharding hints, at its call sites: under
 :func:`mesh_hints` they redistribute a DTensor to the hinted placements;
 outside it, or on a plain tensor, they return it as it is. :func:`sdpa` on
 DTensors runs the kernel on each rank's local head shard
-(:func:`_sdpa_local`). ``accounting_unroll``/``scan_unroll`` (XLA cost
-accounting) are not ported yet (ROADMAP). Remat (``jax.checkpoint``) is
-``lm.remat_call``.
+(:func:`_sdpa_local`). Remat (``jax.checkpoint``) is ``lm.remat_call``.
+
+Counting (the dry-run, ``launch/dryrun.py``): on ``meta`` tensors
+:func:`sdpa` computes shapes only (:func:`attention_shape`, whose FLOPs a
+``FlopCounterMode`` reads); under :func:`counting`, :func:`scan` may run a
+few of its identical trips and scale the rest, and :func:`local_work`
+counts what each rank computes on its own shard as the whole tensor's work.
+Outside :func:`counting` neither changes anything.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 from torch.utils.checkpoint import checkpoint
+from torch.utils.flop_counter import register_flop_formula
 
 from ..kernels import ops
 from .config import ArchConfig
@@ -83,6 +89,102 @@ def mesh_hints(mesh):
         yield
     finally:
         _MESH_HINTS.reset(token)
+
+
+# ---------------------------------------------------------------------------
+# accounting (reference layers.py:58-76) and the dry-run's counting hooks
+# ---------------------------------------------------------------------------
+
+_UNROLL: contextvars.ContextVar = contextvars.ContextVar("acct_unroll", default=False)
+
+
+@contextlib.contextmanager
+def accounting_unroll():
+    """The reference's switch that unrolls every model ``lax.scan``, since
+    XLA's cost analysis counts a loop body once. The port's loops are Python:
+    every trip runs, and is counted, without it. So there is nothing to
+    unroll; the context sets the flag :func:`scan_unroll` reads, for API
+    parity."""
+    token = _UNROLL.set(True)
+    try:
+        yield
+    finally:
+        _UNROLL.reset(token)
+
+
+def scan_unroll():
+    """The reference's ``unroll=`` argument for model-level scans."""
+    return True if _UNROLL.get() else 1
+
+
+_COUNTER: contextvars.ContextVar = contextvars.ContextVar("counter", default=None)
+
+
+@contextlib.contextmanager
+def counting(counter):
+    """Make ``counter`` (``launch.dryrun.Counter``) the active one: it takes
+    over :func:`scan` and :func:`local_work`."""
+    token = _COUNTER.set(counter)
+    try:
+        yield
+    finally:
+        _COUNTER.reset(token)
+
+
+def scan(body, carry, xs, cut: bool = True):
+    """``lax.scan``'s contract in a Python loop: for each x of ``xs`` (a
+    sequence, or an int n for ``range(n)``), ``carry, y = body(carry, x)``;
+    returns (carry, [y, ...]). The trips must be alike (the same ops on
+    the same shapes; the first may differ): under :func:`counting`, the
+    counter may run a few of them and count the rest as their like
+    (``Counter.scan``), unless ``cut`` is False (trips whose skipping would
+    leave something behind, such as their own parameters without a
+    gradient)."""
+    xs = range(xs) if isinstance(xs, int) else xs
+    counter = _COUNTER.get()
+    if counter is not None and cut:
+        return counter.scan(body, carry, xs)
+    ys = []
+    for x in xs:
+        carry, y = body(carry, x)
+        ys.append(y)
+    return carry, ys
+
+
+def shard_factor(mesh, *placements) -> int:
+    """How many ranks' shards make up the whole: the product of the sizes of
+    the mesh dims on which any of ``placements`` is a Shard."""
+    return math.prod(mesh.size(i) for i in range(mesh.ndim)
+                     if any(pl[i].is_shard() for pl in placements))
+
+
+def local_work(factor: int, fn, *args):
+    """``fn(*args)``, which a rank computes on its own shard (local tensors,
+    outside DTensor's dispatch), ``factor`` shards making up the whole.
+    Under :func:`counting` its FLOPs, forward and backward, count ``factor``
+    times: the whole tensor's work, as DTensor ops are counted."""
+    counter = _COUNTER.get()
+    if counter is None or factor == 1:
+        return fn(*args)
+    return counter.local(factor, fn, *args)
+
+
+@torch.library.custom_op("repro_torch::attention_shape", mutates_args=())
+def attention_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Attention's output for (B, S, H, D) operands, shapes only: an empty
+    (B, S, Hq, Dv) tensor. Only meta tensors reach it (:func:`_flash`)."""
+    return q.new_empty(q.shape[:-1] + v.shape[-1:])
+
+
+attention_shape.register_fake(lambda q, k, v: q.new_empty(q.shape[:-1] + v.shape[-1:]))
+
+
+@register_flop_formula(torch.ops.repro_torch.attention_shape)
+def _attention_flops(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    """The reference's plain attention: dense Q.K^T and P.V over all S x Sk
+    pairs, causal or not, 4 B Hq S Sk D."""
+    B, S, Hq, D = q_shape
+    return 4 * B * Hq * S * k_shape[1] * D
 
 
 def hint_spec(shape, spec, sizes) -> tuple:
@@ -134,19 +236,64 @@ def hint_heads(x):
     return hint(x, *heads_spec(x.shape, hints[1]))
 
 
+def whole_unless_divides(x, dim: int, n: int):
+    """A DTensor ``x`` made whole on the mesh dims that split its dim
+    ``dim`` when the product of their sizes does not divide ``n``, the size
+    a reshape gives the dim's leading part; ``x`` as it is otherwise.
+    DTensor cannot carry such a split through the reshape (GSPMD reshards
+    there itself)."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    split = [i for i, p in enumerate(x.placements) if p == Shard(dim)]
+    if n % math.prod(mesh.size(i) for i in split):
+        x = x.redistribute(mesh, [Replicate() if i in split else p
+                                  for i, p in enumerate(x.placements)])
+    return x
+
+
 def split_heads(x, H: int):
     """(B, S, H * hd) -> (B, S, H, hd). A DTensor whose last dim is split
-    over mesh dims whose sizes do not divide H is made whole on them first:
-    DTensor cannot unflatten such a split (GSPMD reshards there itself),
-    e.g. TinyLlama's 2 KV heads when their columns split 4 ways."""
+    over mesh dims whose sizes do not divide H is made whole on them first
+    (:func:`whole_unless_divides`), e.g. TinyLlama's 2 KV heads when their
+    columns split 4 ways."""
     B, S = x.shape[:2]
-    if isinstance(x, DTensor):
-        mesh, last = x.device_mesh, x.dim() - 1
-        split = [i for i, p in enumerate(x.placements) if p == Shard(last)]
-        if H % math.prod(mesh.size(i) for i in split):
-            x = x.redistribute(mesh, [Replicate() if i in split else p
-                                      for i, p in enumerate(x.placements)])
-    return x.reshape(B, S, H, -1)
+    return whole_unless_divides(x, x.dim() - 1, H).reshape(B, S, H, -1)
+
+
+class _Reshape(torch.autograd.Function):
+    """``x.reshape(shape)``, whose backward makes the gradient whole where
+    its dim ``dim`` is split in a way ``n`` does not divide
+    (:func:`whole_unless_divides`) before reshaping it back: a gradient
+    comes back split as the backward's own ops lay it out, which need not be
+    a split the reshape can carry."""
+
+    @staticmethod
+    def forward(ctx, x, shape, dim: int, n: int):
+        ctx.in_shape, ctx.dim, ctx.n = x.shape, dim, n
+        return x.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return whole_unless_divides(grad, ctx.dim, ctx.n).reshape(ctx.in_shape), None, None, None
+
+
+def reshape_whole(x, shape, dim: int, n: int):
+    """``x.reshape(shape)``; on a DTensor, through :class:`_Reshape`."""
+    return _Reshape.apply(x, shape, dim, n) if isinstance(x, DTensor) else x.reshape(shape)
+
+
+def merge_heads(x):
+    """(B, S, H, hd) -> (B, S, H * hd). A split of hd (:func:`hint_heads`'
+    last fallback) is made whole first: merged, it would be a strided split
+    of H * hd, which DTensor plans at great cost on a 3-D mesh and some
+    PyTorch releases refuse. A DTensor's gradient is split back into heads
+    as :func:`split_heads` splits: the gradient of a merged tensor comes
+    back split over its last dim when the projection after it has its
+    weight split there, and H need not divide that split."""
+    B, S, H = x.shape[:3]
+    x = whole_unless_divides(x, 3, 1)        # 1: no split of hd divides it
+    return reshape_whole(x, (B, S, -1), 2, H)
 
 
 def embed(table, tokens):
@@ -299,7 +446,10 @@ def _attend(q, k, v, causal, scale: float):
 
 
 def _flash(q, k, v, causal, scale):
-    """The flash_attention kernel on (B, S, H, Dh) operands."""
+    """The flash_attention kernel on (B, S, H, Dh) operands; on meta tensors
+    (the dry-run) their shapes only, counted as the plain attention."""
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.attention_shape(q, k, v)
     return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                causal=causal, scale=scale).transpose(1, 2)
 
@@ -426,7 +576,9 @@ def _sdpa_local(q, k, v, causal: bool):
     there, not as DTensors) and the result is wrapped back with q's
     placements."""
     ql, kl, vl, q, _, _ = _local_qkv(q, k, v)
-    return _wrap_like(_flash_padded(ql, kl, vl, causal), q, v.shape[-1])
+    out = local_work(shard_factor(q.device_mesh, q.placements), _flash_padded, ql, kl, vl,
+                     causal)
+    return _wrap_like(out, q, v.shape[-1])
 
 
 def _sdpa_cache_local(q, k, v, q_offset: int):
@@ -438,18 +590,29 @@ def _sdpa_cache_local(q, k, v, q_offset: int):
     then each part's P.V summed. Without that split it is ``_sdpa_dense``
     on the local tensors, the same ops as on one device."""
     ql, kl, vl, q, k, seq_dims = _local_qkv(q, k, v, kv_seq=True)
-    if not seq_dims:
-        return _wrap_like(_sdpa_dense(ql, kl, vl, True, q_offset), q, v.shape[-1])
     mesh = q.device_mesh
+    factor = shard_factor(mesh, q.placements, [Shard(1) if i in seq_dims else Replicate()
+                                               for i in range(mesh.ndim)])
+    if not seq_dims:
+        out = local_work(factor, _sdpa_dense, ql, kl, vl, True, q_offset)
+        return _wrap_like(out, q, v.shape[-1])
     groups = [mesh.get_group(i) for i in seq_dims]
     _, offset = compute_local_shape_and_global_offset(k.shape, mesh, k.placements)
+    return _wrap_like(local_work(factor, _attend_split, ql, kl, vl, q_offset, offset[1], groups),
+                      q, v.shape[-1])
+
+
+def _attend_split(ql, kl, vl, q_offset: int, k_offset: int, groups):
+    """:func:`_sdpa_cache_local`'s attention over a sequence-split cache:
+    this rank's keys start at ``k_offset``; the softmax's max and sum and
+    the P.V parts are all-reduced over ``groups``."""
     S, H, Dh = ql.shape[1:]
     if kl.shape[2] != H:
         kl = kl.repeat_interleave(H // kl.shape[2], dim=2)
         vl = vl.repeat_interleave(H // vl.shape[2], dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", ql, kl).float() / math.sqrt(Dh)
     qi = torch.arange(S, device=ql.device)[:, None] + q_offset
-    ki = torch.arange(kl.shape[1], device=ql.device)[None, :] + offset[1]
+    ki = torch.arange(kl.shape[1], device=ql.device)[None, :] + k_offset
     s = s.masked_fill(~(qi >= ki), -1e30)
     m = s.amax(dim=-1, keepdim=True)
     for g in groups:
@@ -461,7 +624,7 @@ def _sdpa_cache_local(q, k, v, q_offset: int):
     out = torch.einsum("bhqk,bkhd->bqhd", (e / total).to(vl.dtype), vl)
     for g in groups:
         dist.all_reduce(out, group=g)
-    return _wrap_like(out, q, v.shape[-1])
+    return out
 
 
 def write_seq(dst, src, start: int) -> None:
@@ -486,8 +649,6 @@ def write_seq(dst, src, start: int) -> None:
 def gqa_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cache_pos=None):
     """Returns (out, cache). cache: dict(k, v) of (B, S_max, Hkv, Dh),
     written in place."""
-    B, S, _ = x.shape
-    hd = cfg.hd
     q = hint_heads(split_heads(x @ p["q"], cfg.n_heads))                # reference :260
     k = hint_heads(split_heads(x @ p["k"], cfg.n_kv_heads))             # reference :261
     v = hint_heads(split_heads(x @ p["v"], cfg.n_kv_heads))             # reference :262
@@ -505,15 +666,54 @@ def gqa_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cac
                 else _sdpa_dense(q, ck, cv, causal=True, q_offset=cache_pos)
     else:
         out = sdpa(q, k, v, causal=causal)
-    out = hint_heads(out).reshape(B, S, cfg.n_heads * hd)              # reference :275
+    out = merge_heads(hint_heads(out))                                  # reference :275
     return hint(out @ p["o"], DP, None, None), cache                   # reference :276
+
+
+def _mla_latent(q_nope, q_rope, c_n, cr, w_uk, w_uv, q_offset: int, scale: float):
+    """MLA's attention absorbed in the latent space, plain ops: q (B, S, H,
+    hd / rd) against the normed compressed cache ``c_n`` (B, Sc, kv_lora)
+    and its rope keys ``cr`` (B, Sc, rd), causal at ``q_offset``; the
+    weights (H, kv_lora, hd). Returns (B, S, H, hd)."""
+    S = q_nope.shape[1]
+    q_lat = torch.einsum("bshd,hkd->bshk", q_nope, w_uk.to(q_nope.dtype))
+    s_lat = torch.einsum("bshk,btk->bhst", q_lat, c_n) * scale
+    s_rope = torch.einsum("bshr,btr->bhst", q_rope, cr.to(q_rope.dtype)) * scale
+    scores = (s_lat + s_rope).float()
+    ti = torch.arange(c_n.shape[1], device=c_n.device)[None, None, None, :]
+    qi = torch.arange(S, device=c_n.device)[None, None, :, None] + q_offset
+    scores = scores.masked_fill(~(qi >= ti), -1e30)
+    pr = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhst,btk->bshk", pr.to(c_n.dtype), c_n)
+    return torch.einsum("bshk,hkd->bshd", ctx, w_uv.to(ctx.dtype))
+
+
+def _mla_latent_local(q_nope, q_rope, c_n, cr, w_uk, w_uv, q_offset: int, scale: float):
+    """:func:`_mla_latent` on DTensors, each rank on its local shards (as
+    :func:`_sdpa_cache_local` attends): q keeps its batch and head splits
+    (any other split or pending sum is made whole), the cache takes q's
+    batch split and is whole otherwise, the weights take q's head split;
+    the result is wrapped with q's placements. DTensor's own layout of the
+    latent products flattens heads with positions, which costs time linear
+    in H x S to plan and which some PyTorch releases refuse."""
+    mesh = q_nope.device_mesh
+    q_pl = [p if p in (Shard(0), Shard(2)) else Replicate() for p in q_nope.placements]
+    cache_pl = [Shard(0) if p == Shard(0) else Replicate() for p in q_pl]
+    w_pl = [Shard(0) if p == Shard(2) else Replicate() for p in q_pl]
+    local = lambda t, pl: t.redistribute(mesh, pl).to_local()
+    out = local_work(shard_factor(mesh, q_pl), _mla_latent, local(q_nope, q_pl),
+                     local(q_rope, q_pl), local(c_n, cache_pl), local(cr, cache_pl),
+                     local(w_uk, w_pl), local(w_uv, w_pl), q_offset, scale)
+    B, S, H = q_nope.shape[:3]
+    D = w_uv.shape[-1]
+    return DTensor.from_local(out.contiguous(), mesh, q_pl, run_check=False,
+                              shape=(B, S, H, D), stride=(S * H * D, H * D, D, 1))
 
 
 def mla_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cache_pos=None):
     """DeepSeek MLA. The cache stores the *compressed* c_kv (+ rope key),
     written in place; with a cache, attention runs absorbed in the latent
-    space (plain ops), without one through :func:`sdpa`."""
-    B, S, _ = x.shape
+    space (:func:`_mla_latent`), without one through :func:`sdpa`."""
     hd, rd = cfg.hd, cfg.rope_head_dim
     H = cfg.n_heads
     cq = rms_norm(x @ p["q_down"], p["q_norm"], cfg.norm_eps)
@@ -532,18 +732,9 @@ def mla_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cac
         w_uk = kv_up[:, :, 0].permute(1, 0, 2)            # (H, kv_lora, hd)
         w_uv = kv_up[:, :, 1].permute(1, 0, 2)            # (H, kv_lora, hd)
         c_n = rms_norm(cc, p["kv_norm"], cfg.norm_eps)    # (B, Sc, kv_lora)
-        q_lat = torch.einsum("bshd,hkd->bshk", q_nope, w_uk.to(q_nope.dtype))
-        scale = 1.0 / math.sqrt(hd + rd)
-        s_lat = torch.einsum("bshk,btk->bhst", q_lat, c_n) * scale
-        s_rope = torch.einsum("bshr,btr->bhst", q_rope, cr.to(q_rope.dtype)) * scale
-        scores = (s_lat + s_rope).float()
-        ti = torch.arange(cc.shape[1], device=x.device)[None, None, None, :]
-        qi = torch.arange(S, device=x.device)[None, None, :, None] + cache_pos
-        scores = scores.masked_fill(~(qi >= ti), -1e30)
-        pr = torch.softmax(scores, dim=-1)
-        ctx = torch.einsum("bhst,btk->bshk", pr.to(c_n.dtype), c_n)
-        out = torch.einsum("bshk,hkd->bshd", ctx, w_uv.to(ctx.dtype))
-        out = hint_heads(out).reshape(B, S, H * hd)                    # reference :320
+        attend = _mla_latent_local if isinstance(q, DTensor) else _mla_latent
+        out = attend(q_nope, q_rope, c_n, cr, w_uk, w_uv, cache_pos, 1.0 / math.sqrt(hd + rd))
+        out = merge_heads(hint_heads(out))                             # reference :320
         return hint(out @ p["o"], DP, None, None), cache               # reference :321
     c_n = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
     kv = hint_heads(split_heads(c_n @ p["kv_up"], H))                   # reference :325
@@ -552,7 +743,7 @@ def mla_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cac
     k_full = torch.cat([k_nope, k_rope_b.to(k_nope.dtype)], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     out = sdpa(q_full, k_full, v, causal=causal)
-    out = hint_heads(out).reshape(B, S, H * hd)                        # reference :332
+    out = merge_heads(hint_heads(out))                                 # reference :332
     return hint(out @ p["o"], DP, None, None), None                    # reference :333
 
 
@@ -601,11 +792,16 @@ def moe_ffn(cfg: ArchConfig, p, x):
     dispatched in groups of MOE_GROUP tokens where the reference does."""
     B, S, D = x.shape
     T_all = B * S
-    x2 = x.reshape(T_all, D)
+    # tokens flattened from a batch split unevenly (fewer rows than data-
+    # parallel ranks: a microbatch of the 2x16x16 mesh) and back: that
+    # split made whole on both sides (whole_unless_divides)
+    x2 = reshape_whole(whole_unless_divides(x, 0, B), (T_all, D), 0, B)
     if T_all > MOE_GROUP and T_all % MOE_GROUP == 0:
-        groups = [_moe_group(cfg, p, g) for g in x2.split(MOE_GROUP)]
-        return torch.cat(groups).reshape(B, S, D)
-    return _moe_group(cfg, p, x2).reshape(B, S, D)
+        _, groups = scan(lambda c, g: (c, _moe_group(cfg, p, g)), None, x2.split(MOE_GROUP))
+        out = torch.cat(groups)
+    else:
+        out = _moe_group(cfg, p, x2)
+    return reshape_whole(whole_unless_divides(out, 0, B), (B, S, D), 0, B)
 
 
 def _moe_group(cfg: ArchConfig, p, x2):

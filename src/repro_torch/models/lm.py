@@ -183,25 +183,44 @@ def _blocks(cfg: ArchConfig, params, x, positions, cache=None, cache_pos=None,
             remat: bool = False):
     """Every layer of the stack; with a cache, filled (prefill, cache_pos
     0) or extended (decode) in place; without one, each block under
-    :func:`remat_call`."""
+    :func:`remat_call`. The layers go through ``layers.scan`` (the
+    reference's ``lax.scan``s), one trip per layer, or per group of
+    ``attn_every`` SSM layers and the shared attention block (hybrid), so
+    the trips are alike; a hybrid stack's tail layers follow. The dry-run
+    cuts them short only where no gradient is taken: a skipped layer's
+    parameters would get none."""
     remat = remat and cache is None
+    layers = params["layers"]
+    cut = not torch.is_grad_enabled()
     if cfg.family in ("dense", "vlm", "moe"):
-        for i, lp in enumerate(params["layers"]):
-            x = remat_call(remat, functools.partial(_attn_block, cfg, lp), x, positions,
-                           _layer(cache, i), cache_pos)
-        return x
+        def layer(x, i):
+            return remat_call(remat, functools.partial(_attn_block, cfg, layers[i]), x, positions,
+                              _layer(cache, i), cache_pos), None
+
+        return L.scan(layer, x, len(layers), cut)[0]
     if cfg.family not in ("ssm", "hybrid"):
         raise ValueError(cfg.family)
     states = cache if cache is None or cfg.family == "ssm" else cache["ssm"]
-    for i, lp in enumerate(params["layers"]):
-        x = remat_call(remat, functools.partial(_ssm_block, cfg, lp), x, states, i)
-        if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
-            # groups of attn_every ssm blocks, each followed by the shared
-            # attention block with its own KV history
-            g = i // cfg.attn_every
-            ac = None if cache is None else {"k": cache["attn_k"][g], "v": cache["attn_v"][g]}
-            x = remat_call(remat, functools.partial(_attn_block, cfg, params["shared_attn"]),
-                           x, positions, ac, cache_pos)
+
+    def ssm(x, i):
+        return remat_call(remat, functools.partial(_ssm_block, cfg, layers[i]), x, states, i)
+
+    if cfg.family == "ssm":
+        return L.scan(lambda x, i: (ssm(x, i), None), x, len(layers), cut)[0]
+    k = cfg.attn_every
+
+    def group(x, g):
+        # attn_every ssm blocks, then the shared attention block with this
+        # group's own KV history
+        for i in range(g * k, (g + 1) * k):
+            x = ssm(x, i)
+        ac = None if cache is None else {"k": cache["attn_k"][g], "v": cache["attn_v"][g]}
+        return remat_call(remat, functools.partial(_attn_block, cfg, params["shared_attn"]),
+                          x, positions, ac, cache_pos), None
+
+    x = L.scan(group, x, len(layers) // k, cut)[0]
+    for i in range(len(layers) // k * k, len(layers)):
+        x = ssm(x, i)
     return x
 
 

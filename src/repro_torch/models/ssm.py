@@ -2,9 +2,10 @@
 
 Port of ``repro/models/ssm.py``. The reference's ``lax.scan`` over time
 (Mamba1) and over chunks (Mamba2's inter-chunk recurrence) are Python loops
-here. The reference splits the Mamba1 scan into remat'd chunks of
-``SSM_CHUNK`` steps to bound backward memory; the steps and their order are
-the same either way, so this port scans step by step. Mamba2 keeps the SSD
+here; Mamba1's goes through ``layers.scan``, which the dry-run may cut to a
+few identical steps. The reference splits the Mamba1 scan into remat'd
+chunks of ``SSM_CHUNK`` steps to bound backward memory; the steps and their
+order are the same either way, so this port scans step by step. Mamba2 keeps the SSD
 chunked matmul form (Dao & Gu, 2024) with chunks of ``SSM_CHUNK``.
 
 States are returned as new tensors; the model writes them into its cache
@@ -20,7 +21,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .config import ArchConfig
-from .layers import DP, dense_init, hint, normal, ones
+from .layers import DP, dense_init, hint, local_work, normal, ones, scan, shard_factor, \
+    split_heads
 
 SSM_CHUNK = 256
 
@@ -72,12 +74,14 @@ def mamba1_scan(p, x, h0=None):
     xf = x.float()
 
     h = x.new_zeros((B, di, N), dtype=torch.float32) if h0 is None else h0
-    ys = []
-    for t in range(S):
+
+    def step(h, t):
         dA = torch.exp(dt[:, t, :, None] * A[None])             # (B,di,N)
         dBx = dt[:, t, :, None] * Bm[:, t, None, :] * xf[:, t, :, None]
         h = h * dA + dBx
-        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
+        return h, torch.einsum("bdn,bn->bd", h, Cm[:, t])
+
+    h, ys = scan(step, h, S)
     y = torch.stack(ys, dim=1) + xf * p["D"][None, None, :]
     return y.to(x.dtype), h
 
@@ -193,8 +197,8 @@ def _ssd(x, a_log, Bm, Cm, h0=None):
     mesh = x.device_mesh
     pl = [Shard(0) if p == Shard(0) else Replicate() for p in x.placements]
     local = lambda t: t.redistribute(mesh, pl).to_local()
-    y, h = mamba2_ssd(local(x), local(a_log), local(Bm), local(Cm),
-                      None if h0 is None else local(h0))
+    y, h = local_work(shard_factor(mesh, pl), mamba2_ssd, local(x), local(a_log), local(Bm),
+                      local(Cm), None if h0 is None else local(h0))
 
     def wrap(t, shape):
         stride = [1] * len(shape)
@@ -219,7 +223,7 @@ def mamba2_block(cfg: ArchConfig, p, x, state=None):
     conv_state = None if state is None else state["conv"]
     xBC, new_conv = _causal_conv1d(xBC, p["conv_w"], p["conv_b"], conv_state)
     xBC = F.silu(xBC)
-    xs = xBC[..., :di].reshape(B, S, H, P)
+    xs = split_heads(xBC[..., :di], H)
     Bm = xBC[..., di:di + N].float()
     Cm = xBC[..., di + N:].float()
     dt = F.softplus(dt_raw.float() + p["dt_bias"])               # (B,S,H)

@@ -84,13 +84,11 @@ def encode(cfg: ArchConfig, params, frames, remat: bool = True):
 def _cross_attention(cfg, p, x, enc_out):
     """x: (B, S, D) decoder states against the encoder output (the teacher-
     forced decoder's cross-attention)."""
-    B, S, _ = x.shape
-    hd = cfg.hd
-    q = (x @ p["q"]).reshape(B, S, cfg.n_heads, hd)
-    k = (enc_out @ p["k"]).reshape(B, -1, cfg.n_kv_heads, hd)
-    v = (enc_out @ p["v"]).reshape(B, -1, cfg.n_kv_heads, hd)
+    q = L.split_heads(x @ p["q"], cfg.n_heads)
+    k = L.split_heads(enc_out @ p["k"], cfg.n_kv_heads)
+    v = L.split_heads(enc_out @ p["v"], cfg.n_kv_heads)
     out = L.sdpa(q, k, v, causal=False)
-    return out.reshape(B, S, cfg.n_heads * hd) @ p["o"]
+    return L.merge_heads(out) @ p["o"]
 
 
 def _dec_block(cfg, lp, x, positions, enc_out):
@@ -140,8 +138,8 @@ def prefill(cfg: ArchConfig, params, frames, cache):
     B = enc_out.shape[0]
     for i, lp in enumerate(params["dec_layers"]):
         p = lp["cross_attn"]
-        cache["xk"][i] = (enc_out @ p["k"]).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
-        cache["xv"][i] = (enc_out @ p["v"]).reshape(B, -1, cfg.n_kv_heads, cfg.hd)
+        cache["xk"][i] = L.split_heads(enc_out @ p["k"], cfg.n_kv_heads)
+        cache["xv"][i] = L.split_heads(enc_out @ p["v"], cfg.n_kv_heads)
     # no decoder tokens yet: a placeholder logits block keeps the prefill
     # signature of the LM families
     return enc_out.new_zeros((B, 1, cfg.vocab)), cache
@@ -158,9 +156,9 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
                                cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_pos=pos)
         x = x + h
         xq = L.rms_norm(x, lp["ln_x"], cfg.norm_eps)
-        q = (xq @ lp["cross_attn"]["q"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+        q = L.split_heads(xq @ lp["cross_attn"]["q"], cfg.n_heads)
         out = L.sdpa(q, cache["xk"][i], cache["xv"][i], causal=False)
-        x = x + out.reshape(B, 1, cfg.n_heads * cfg.hd) @ lp["cross_attn"]["o"]
+        x = x + L.merge_heads(out) @ lp["cross_attn"]["o"]
         x = x + L.glu_mlp(cfg, lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
     x = L.rms_norm(x, params["dec_norm"], cfg.norm_eps)
     return x @ params["tok_embed"].mT, cache

@@ -125,10 +125,11 @@ class Trainer:
         save(step, tree, opt, extra={"data": {"step": step}})
 
     def _sync_checkpoints(self):
-        """Wait for this process's checkpoint writes; with a mesh, for
-        rank 0's too (every rank then sees the same newest checkpoint)."""
+        """Wait for this process's checkpoint writes; with a mesh of more
+        than one rank, for rank 0's too (every rank then sees the same
+        newest checkpoint)."""
         self.ckpt.wait()
-        if self.mesh is not None:
+        if self.mesh is not None and self.mesh.size() > 1:
             dist.barrier()
 
     # -- main loop ----------------------------------------------------------

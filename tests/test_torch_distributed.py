@@ -21,11 +21,25 @@ seven smoke configs at the same shape:
   ``CommDebugMode`` counts
   all-gathers, reduce-scatters or all-reduces, as the reference asserts
   ``has_collectives``;
-* TinyLlama's prefill and decode bundles at B = 4 (batch-sharded cache)
-  and B = 1 (sequence-sharded cache) give the unsharded logits within
-  ``REL`` of their largest magnitude, greedy ids equal;
+* TinyLlama's and DeepSeek-V3's (MLA's latent attention on local
+  shards) prefill and decode bundles at B = 4 (batch-sharded cache) and
+  B = 1 (sequence-sharded cache) give the unsharded logits within ``REL``
+  of their largest magnitude, greedy ids equal;
 * ``Trainer.reshard`` from 2x2 to 1x4 leaves the gathered parameters and
-  optimizer state bit-equal, laid out by the new mesh's placements.
+  optimizer state bit-equal, laid out by the new mesh's placements;
+* Whisper's smoke config with its heads narrowed to 2 (head dim 32), which
+  the 4-way 'model' axis of a 1x4 mesh does not divide: the sharded train
+  step equals the unsharded one as above, and the sharded prefill's cross-
+  attention cache the unsharded one's within ``REL`` (its head splits and
+  merges go through ``layers.split_heads``/``merge_heads``);
+* the dry-run's counter (``launch.dryrun.Counter``, every trip run) counts
+  the same collectives, kind by kind, and the same bytes on this gloo mesh
+  as on a fake process group of 4 ranks with meta copies of the same
+  inputs: TinyLlama's train, prefill and decode steps, Qwen3-MoE's and
+  Falcon-Mamba's train steps;
+* ``launch.train`` at world size 4 trains on rank 0 alone, on a 1x1 mesh of
+  its own (the reference's rule: the production mesh needs 256 devices),
+  and the other ranks return without training.
 
 Each test spawns its own group, destroys it, and joins its processes
 within ``TIMEOUT`` seconds.
@@ -68,21 +82,25 @@ OTHER_ARCHS = ["pixtral_12b", "deepseek_v3_671b", "zamba2_7b", "gemma_7b", "gran
 # ---------------------------------------------------------------------------
 
 
-def _ref_inputs(arch, path, batch=8, seq=64):
-    """The reference's fp32 weights and a batch, as numpy, pickled."""
+def _ref_inputs(arch, path, batch=8, seq=64, overrides=None):
+    """The reference's fp32 weights and a batch, as numpy, pickled; the
+    smoke config with ``overrides`` (config fields) when given."""
+    import dataclasses
+
     import jax
     import jax.numpy as jnp
 
     from repro import configs as jconfigs
     from repro.models import api as japi
 
-    cfg = jconfigs.get_smoke_config(arch)
+    cfg = dataclasses.replace(jconfigs.get_smoke_config(arch), **(overrides or {}))
     params = jax.tree_util.tree_map(
         np.asarray, japi.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32))
     batch = {k: np.asarray(v, np.float32 if k == "frames" else np.int64) for k, v in
              japi.make_train_batch(cfg, batch, seq, np.random.default_rng(0)).items()}
     with open(path, "wb") as f:
-        pickle.dump({"params": params, "batch": batch, "tokens": batch["tokens"]}, f)
+        pickle.dump({"params": params, "batch": batch, "tokens": batch["tokens"],
+                     "overrides": overrides or {}}, f)
 
 
 def _rank_main(rank, job, arch, tmp, extra):
@@ -103,7 +121,12 @@ def _rank_main(rank, job, arch, tmp, extra):
 
 
 def _spawn(job, arch, tmp, extra=None):
-    """Run ``job`` on WORLD ranks; rank 0's result (any rank's error raises)."""
+    """Run ``job`` on WORLD ranks; rank 0's result (any rank's error raises).
+    A test may spawn more than once in its directory: each spawn starts a
+    fresh store."""
+    store = os.path.join(tmp, "store")
+    if os.path.exists(store):
+        os.remove(store)
     ctx = mp.start_processes(_rank_main, args=(job, arch, str(tmp), extra), nprocs=WORLD,
                              join=False, start_method="spawn")
     deadline = time.monotonic() + TIMEOUT
@@ -126,10 +149,12 @@ def _spawn(job, arch, tmp, extra=None):
 
 
 def _model(arch, inputs):
+    import dataclasses
+
     from repro_torch import configs as tconfigs
     from repro_torch.models import api as tapi
 
-    cfg = tconfigs.get_smoke_config(arch)
+    cfg = dataclasses.replace(tconfigs.get_smoke_config(arch), **inputs["overrides"])
     return cfg, tapi.params_from_numpy(cfg, inputs["params"], device="cpu")
 
 
@@ -152,7 +177,7 @@ def _rel(a, b):
 # ---------------------------------------------------------------------------
 
 
-def _job_train(arch, inputs, _extra):
+def _job_train(arch, inputs, mesh_shape):
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.launch import steps
@@ -169,7 +194,7 @@ def _job_train(arch, inputs, _extra):
     plain = steps.make_train_step(cfg, shape, **kw)
     p_model, p_opt, p_metrics = plain(model, opt_state, batch, 0)
 
-    bundle = steps.make_train_step(cfg, shape, _mesh(), **kw)
+    bundle = steps.make_train_step(cfg, shape, _mesh(mesh_shape or (2, 2)), **kw)
     with CommDebugMode() as comm:
         s_model, s_opt, s_metrics = bundle.fn(model, opt_state, batch, 0)
     counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
@@ -263,6 +288,102 @@ def _job_reshard(arch, inputs, tmp):
             "loss_after": float(metrics["loss"])}
 
 
+def _job_whisper_prefill(arch, inputs, mesh_shape):
+    """The sharded prefill (encoder, cross-attention K/V into the cache)
+    against the unsharded one, on 1500 seeded frames."""
+    from repro_torch.launch import steps
+    from repro_torch.models import api as tapi
+    from repro_torch.models.config import ShapeConfig
+
+    cfg, model = _model(arch, inputs)
+    B, S = 2, 8
+    frames = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (B, tapi.AUDIO_ENC_FRAMES, cfg.d_model)).astype(np.float32))
+    bundle = steps.make_serve_step(cfg, ShapeConfig("s", S, B, "prefill"), _mesh(mesh_shape),
+                                   "prefill")
+    _, cache = bundle.fn(model, {"frames": frames}, tapi.init_cache(cfg, B, S, torch.float32,
+                                                                    "cpu"))
+    with torch.no_grad():
+        _, ref = tapi.prefill(cfg, model, frames, tapi.init_cache(cfg, B, S, torch.float32,
+                                                                  "cpu"))
+    return {k: _rel(cache[k], ref[k]) for k in ("xk", "xv")}
+
+
+def _job_whisper_uneven(arch, inputs, mesh_shape):
+    """The train step and the prefill of one spawned group."""
+    return {"train": _job_train(arch, inputs, mesh_shape),
+            "prefill": _job_whisper_prefill(arch, inputs, mesh_shape)}
+
+
+def _count(bundle, args, mesh):
+    """(collective counts, bytes) of ``bundle.fn(*args)``, every trip run,
+    with the arguments laid out beforehand (placing a whole tensor
+    scatters it, which the step itself does not)."""
+    from repro_torch.launch import dryrun, sharding as shd, steps
+
+    placed = []
+    for a, pl in zip(args, bundle.in_placements):
+        if hasattr(a, "tree"):
+            a = steps._placed_model(a, pl, mesh)
+        elif isinstance(a, dict):
+            a = {k: v if k == "step" else shd.place_tree(v, pl[k], mesh) for k, v in a.items()}
+        elif isinstance(a, torch.Tensor) and a.dim():
+            a = shd.place(a, pl, mesh)
+        placed.append(a)
+    counter, _ = dryrun.count_step(bundle, tuple(placed), shortcut=False)
+    coll = counter.collectives()
+    return coll["counts"], coll["bytes"]
+
+
+def count_cases(arch, inputs, mesh, device):
+    """{step: (counts, bytes)} of the arch's train step (and TinyLlama's
+    prefill and decode) on ``mesh``, the inputs on ``device`` ("meta" for
+    the fake group: the same shapes and dtypes, nothing allocated)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import api as tapi
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import make_optimizer
+
+    cfg, model = _model(arch, inputs)
+    model = model.to(device)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in inputs["batch"].items()}
+    train = steps.make_train_step(cfg, ShapeConfig(*TRAIN_SHAPE), mesh, optimizer="adamw")
+    out = {"train": _count(train, (model, make_optimizer("adamw").init(model.tree()), batch,
+                                   torch.zeros((), dtype=torch.int32)), mesh)}
+    if arch == "tinyllama_1_1b":
+        B, S = 4, 16
+        shape = ShapeConfig("s", S + 1, B, "decode")
+        prompt = batch["tokens"][:B, :S]
+        cache = lambda: tapi.init_cache(cfg, B, S + 1, torch.float32, device)
+        pre = steps.make_serve_step(cfg, shape, mesh, "prefill")
+        out["prefill"] = _count(pre, (model, {"tokens": prompt}, cache()), mesh)
+        dec = steps.make_serve_step(cfg, shape, mesh, "decode")
+        out["decode"] = _count(dec, (model, cache(), prompt[:, -1:], S), mesh)
+    return out
+
+
+def _job_count(arch, inputs, _extra):
+    return count_cases(arch, inputs, _mesh(), "cpu")
+
+
+def _job_launch(arch, inputs, tmp):
+    """``launch.train.main`` on every rank, the group already up (as under
+    torchrun); then every rank reports whether it trained."""
+    from repro_torch.launch import train
+
+    trainer = train.main(["--arch", arch, "--smoke", "--steps", "3", "--batch", "4", "--seq",
+                          "16", "--device", "cpu", "--ckpt-every", "2", "--ckpt-dir",
+                          os.path.join(tmp, f"ckpt_{dist.get_rank()}")])
+    trained = [None] * dist.get_world_size()
+    dist.all_gather_object(trained, trainer is not None)
+    out = {"trained": trained}
+    if trainer is not None:
+        out.update(mesh=tuple(trainer.mesh.mesh.shape), mesh_size=trainer.mesh.size(),
+                   losses=[m["loss"] for m in trainer.metrics if "loss" in m],
+                   ckpts=trainer.ckpt.all_steps())
+    return out
+
+
 def _placements(tree, pl):
     """``pl``'s placement tuples in ``tree``'s leaf order."""
     from repro_torch.optim.optimizers import tree_map
@@ -272,7 +393,8 @@ def _placements(tree, pl):
     return out
 
 
-JOBS = {"train": _job_train, "serve": _job_serve, "reshard": _job_reshard}
+JOBS = {"train": _job_train, "serve": _job_serve, "reshard": _job_reshard,
+        "whisper_uneven": _job_whisper_uneven, "count": _job_count, "launch": _job_launch}
 
 
 # ---------------------------------------------------------------------------
@@ -287,10 +409,7 @@ def inputs(tmp_path, request):
     return arch, tmp_path
 
 
-@pytest.mark.parametrize("inputs", SPMD_ARCHS + OTHER_ARCHS, indirect=True)
-def test_sharded_train_step_equals_unsharded(inputs):
-    arch, tmp = inputs
-    r = _spawn("train", arch, tmp)
+def assert_train_equal(r):
     for key in ("loss", "grad_norm"):
         got, want = r[key]
         assert np.isfinite(got) and abs(got - want) <= REL * abs(want), (key, got, want)
@@ -303,6 +422,49 @@ def test_sharded_train_step_equals_unsharded(inputs):
     assert coll > 0, r["counts"]
 
 
+@pytest.mark.parametrize("inputs", SPMD_ARCHS + OTHER_ARCHS, indirect=True)
+def test_sharded_train_step_equals_unsharded(inputs):
+    arch, tmp = inputs
+    assert_train_equal(_spawn("train", arch, tmp))
+
+
+#: Whisper's heads narrowed so that a 4-way 'model' axis does not divide them
+WHISPER_NARROW = {"n_heads": 2, "n_kv_heads": 2, "head_dim": 32}
+
+
+def test_whisper_uneven_heads_sharded_equal_unsharded(tmp_path):
+    _ref_inputs("whisper_base", tmp_path / "inputs.pkl", overrides=WHISPER_NARROW)
+    r = _spawn("whisper_uneven", "whisper_base", tmp_path, (1, 4))
+    assert_train_equal(r["train"])
+    assert max(r["prefill"].values()) <= REL, r["prefill"]
+
+
+@pytest.mark.parametrize("inputs", ["tinyllama_1_1b", "qwen3_moe_30b_a3b", "falcon_mamba_7b"],
+                         indirect=True)
+def test_fake_group_counts_equal_gloo(inputs):
+    import pickle as pkl
+
+    from repro_torch.launch import dryrun
+
+    arch, tmp = inputs
+    real = _spawn("count", arch, tmp)
+    with open(tmp / "inputs.pkl", "rb") as f:
+        ref_inputs = pkl.load(f)
+    with dryrun.fake_group(WORLD):
+        fake = count_cases(arch, ref_inputs, _mesh(), "meta")
+    assert fake == real
+    assert all(sum(c.values()) > 0 for c, _ in real.values()), real
+
+
+def test_train_launcher_below_256_ranks_trains_on_rank_0(tmp_path):
+    _ref_inputs("smollm_360m", tmp_path / "inputs.pkl")
+    r = _spawn("launch", "smollm_360m", tmp_path, str(tmp_path))
+    assert r["trained"] == [True, False, False, False], r
+    assert r["mesh"] == (1, 1) and r["mesh_size"] == 1, r
+    assert len(r["losses"]) == 3 and np.isfinite(r["losses"]).all(), r
+    assert r["ckpts"] == [1, 2], r
+
+
 @pytest.mark.parametrize("batch", [4, 1])
 def test_sharded_prefill_and_decode_equal_unsharded(tmp_path, batch):
     _ref_inputs("tinyllama_1_1b", tmp_path / "inputs.pkl")
@@ -312,6 +474,16 @@ def test_sharded_prefill_and_decode_equal_unsharded(tmp_path, batch):
     # B = 4 splits the cache's batch over 'data'; B = 1 its sequence (SP)
     want = "Shard(dim=1)" if batch == 4 else "Shard(dim=2)"
     assert all(p.startswith(f"({want}") for p in r["placements"]["cache"].values()), r
+
+
+@pytest.mark.parametrize("batch", [4, 1])
+def test_sharded_mla_prefill_and_decode_equal_unsharded(tmp_path, batch):
+    """DeepSeek-V3's absorbed (latent) attention over its compressed cache,
+    which the sharded path computes on local shards."""
+    _ref_inputs("deepseek_v3_671b", tmp_path / "inputs.pkl")
+    r = _spawn("serve", "deepseek_v3_671b", tmp_path, batch)
+    assert max(r["errs"]) <= REL, r
+    assert r["same_ids"], r
 
 
 def test_reshard_2x2_to_1x4_is_bit_equal(inputs):

@@ -44,6 +44,10 @@ SLICE_MODULES = [
     "repro_torch.launch.train",
     "repro_torch.launch.mesh",
     "repro_torch.launch.sharding",
+    "repro_torch.launch.dryrun",
+    "repro_torch.roofline",
+    "repro_torch.roofline.analysis",
+    "repro_torch.roofline.report",
     "repro_torch.examples",
     "repro_torch.examples.quickstart",
     "repro_torch.examples.numerics_codesign",
@@ -99,6 +103,13 @@ def test_slice_modules_import_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_every_reference_module_has_a_counterpart():
+    ref = ROOT / "src" / "repro"
+    missing = [str(f.relative_to(ref)) for f in sorted(ref.rglob("*.py"))
+               if not (PORT / f.relative_to(ref)).exists()]
+    assert not missing, missing
 
 
 def test_no_jax_or_reference_imports_in_sources():
