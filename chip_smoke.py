@@ -162,17 +162,49 @@ without one). Phases, one line each:
              path "dist"), s/step of both; prefill + 8 decode steps
              through ``make_serve_step`` at lm_serve's shapes (gates:
              greedy ids equal ``launch.serve.generate``'s, 22 wgmma
-             launches in prefill); every process group destroyed
+             launches in prefill); then Qwen3-MoE and Falcon-Mamba-7B at
+             their published widths, depth cut to 2 layers, bf16, one
+             sharded train step of 8 x 64 tokens each on the same mesh
+             against the plain step (the MoE's token group cut to 256:
+             two group pieces; gates: bit-identical under
+             ``device.deterministic()``, the MoE's local-shard dispatch
+             and the wgmma design, or the Mamba1 local scan and in_proj's
+             halves, ran twice a layer: forward and remat recompute), and
+             Falcon-Mamba's prefill of 8 x 512 tokens (in_proj's weight
+             sliced) + 3 decode steps through the serve bundles against
+             the plain prefill and decode (gate: logits within 2e-2 of
+             their largest magnitude); every process group destroyed
 17. dryrun   ``launch.dryrun`` on the card's host (its own PyTorch release):
              TinyLlama-1.1B's train_4k, prefill_32k and decode_32k cells,
              Zamba2-7B's long_500k (hybrid) and Falcon-Mamba-7B's
-             decode_32k (SSM) at 16x16 over a fake process group of 256,
-             meta tensors: seconds, FLOPs per device, collective bytes,
+             decode_32k (SSM), and the cells of the local-shard paths:
+             Qwen3-MoE train_4k and DeepSeek-V3 decode_32k (the MoE
+             dispatch), SmolLM-360M and Whisper-base train_4k (the
+             o-projection after a sequence split), Falcon-Mamba-7B
+             prefill_32k (the Mamba1 scan), at 16x16 over a fake process
+             group of 256, meta tensors: seconds, FLOPs per device, collective bytes,
              resident bytes, the roofline bound on the H100's published
              peaks (``roofline.analysis``); gate: every cell "ok". Then the
              roofline bound of phase 14's own step (TinyLlama-1.1B, one
              device, 4 x 1024, AdamW, counted on meta tensors) beside the
              s/step phase 14 measured, and their ratio. No kernel runs.
+18. gloo_cpu 4 gloo processes on the host's CPU, on purpose: the card's
+             PyTorch release's DTensor rules held against real collectives
+             (the card is one device). The smoke configs' sharded steps on
+             2x2, 1x4 and 4x1 meshes against the unsharded step on the same
+             seeded fp32 weights: Qwen3-MoE and DeepSeek-V3 (capacity factor
+             0.5, ``layers.MOE_GROUP`` 256: slots dropped, groups across
+             ranks) and Falcon-Mamba-7B (Mamba1), a train step and prefill +
+             3 decode steps each; SmolLM-360M (3 heads on a 2-way 'model'
+             axis: the o-projection after a sequence split), a train step.
+             Checks and gates: ``launch/checks.py``, as the CPU tests
+             (tests/test_torch_sharded_moe_ssm.py) run them: loss and grad
+             norm within 1e-5 relative, both AdamW moments within 1e-5 of
+             the leaf's largest magnitude, parameters within 5e-3 (and 1e-6
+             of the AdamW update of the sharded moments), collectives
+             counted, logits within 1e-5, greedy ids equal, dropped slots in
+             the MoE train steps and prefills, SmolLM's attention output
+             split over batch and sequence. No kernel runs.
 
 Every count of kernel launches is set to 0 just before a path runs and read
 just after it. Then one JSON line with an entry per kernel and per design of
@@ -246,12 +278,32 @@ TRAIN_GRAD_WRONG = ("non_causal", "scale_x1.1")
 #: at lm_serve's
 DIST_ARCH, DIST_STEPS, DIST_DECODE = LM_ARCH, 2, 8
 #: the dry-run's cells on the card's host (16x16): TinyLlama's three, a
-#: hybrid and an SSM cell. No MoE cell: on the card's PyTorch release every
-#: Qwen3-MoE and DeepSeek-V3 cell tried fails in the MoE dispatch's
-#: index_add (ROADMAP Queue 3)
+#: hybrid and an SSM cell, and one cell of each local-shard path (the MoE
+#: dispatch, the o-projection after a sequence split, the Mamba1 scan)
 DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k"), ("tinyllama_1_1b", "prefill_32k"),
                 ("tinyllama_1_1b", "decode_32k"), ("zamba2_7b", "long_500k"),
-                ("falcon_mamba_7b", "decode_32k"))
+                ("falcon_mamba_7b", "decode_32k"), ("qwen3_moe_30b_a3b", "train_4k"),
+                ("deepseek_v3_671b", "decode_32k"), ("smollm_360m", "train_4k"),
+                ("whisper_base", "train_4k"), ("falcon_mamba_7b", "prefill_32k"))
+#: phase 16's local-shard steps: Qwen3-MoE (d_model 2048, 128 experts,
+#: top-8, expert FFN 768) and Falcon-Mamba-7B (Mamba1, d_inner 8192) at
+#: their published widths, depth cut to LOCAL_LAYERS; a train step of 8 x 64
+#: tokens (the MoE's token group cut to LOCAL_MOE_GROUP, so that its 512
+#: tokens run as two group pieces), and Falcon-Mamba's prefill of 8 x
+#: LOCAL_PROMPT tokens (4096 tokens: in_proj's halves taken by slicing the
+#: weight) and LOCAL_GEN - 1 decode steps, logits within LOCAL_LOGITS_TOL of
+#: their largest magnitude (the plain prefill slices the product instead)
+LOCAL_ARCHS, LOCAL_LAYERS, LOCAL_MOE_GROUP = ("qwen3_moe_30b_a3b", "falcon_mamba_7b"), 2, 256
+LOCAL_PROMPT, LOCAL_GEN, LOCAL_LOGITS_TOL = 512, 4, 2e-2
+#: phase 18: 4 gloo ranks on the host's CPU; the smoke configs checked on
+#: each mesh shape (launch/checks.py: its capacity factor and token group,
+#: and its gates, tests/test_torch_sharded_moe_ssm.py's); SmolLM's train
+#: step only, its attention output split over batch and sequence
+GLOO_WORLD, GLOO_TIMEOUT_S = 4, 300
+GLOO_CASES = {(2, 2): ("qwen3_moe_30b_a3b", "deepseek_v3_671b", "falcon_mamba_7b", "smollm_360m"),
+              (1, 4): ("qwen3_moe_30b_a3b", "deepseek_v3_671b", "falcon_mamba_7b"),
+              (4, 1): ("qwen3_moe_30b_a3b",)}
+GLOO_SEQ_SPLIT = "smollm_360m"
 
 N_EVAL = 40
 TRAIN_STEPS = 600
@@ -925,11 +977,205 @@ def distributed_phase(dev, zero_counts, read_counts, report: dict, smi: str) -> 
         if not ids_equal or serve_counts["flash_attention:wgmma"] != cfg.n_layers:
             raise AssertionError(f"dist_serve: {dist_report['serve']}")
         del model, opt_state, cache
+        dist_report["local_shard"] = local_shard_steps_1x1(dev, mesh, kw, zero_counts,
+                                                           read_counts)
     finally:
         dist.destroy_process_group()
     if dist.is_initialized():
         raise AssertionError("a process group outlived the distributed phase")
     phase("distributed_done", phase_s=f"{time.perf_counter() - t_phase:.2f}")
+
+
+def local_shard_steps_1x1(dev, mesh, kw, zero_counts, read_counts) -> dict:
+    """Phase 16's local-shard steps on the 1x1 mesh: for each of
+    LOCAL_ARCHS at its published widths and LOCAL_LAYERS layers (seeded
+    bf16 weights), one sharded train step against the plain step, both
+    under ``device.deterministic()`` (the dispatch's index_add and the
+    backward of its gathers accumulate with atomics otherwise), gate
+    bit-identical; then Falcon-Mamba's prefill + decode through the serve
+    bundles (``launch.checks.serve_vs_plain``). The local-shard functions
+    (``layers._moe_sharded``, ``ssm._selective_scan_local``,
+    ``ssm._in_proj_halves`` and its branch) are counted as they run on
+    CUDA tensors."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import device as devmod, optim as roptim
+    from repro_torch.configs import get_config
+    from repro_torch.launch import checks, steps as rsteps
+    from repro_torch.models import api as lm_api, layers, ssm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.optimizers import tree_leaves
+
+    calls = {"moe_sharded": 0, "selective_scan_local": 0, "in_proj_product": 0,
+             "in_proj_weight": 0}
+    originals = (layers._moe_sharded, ssm._selective_scan_local, ssm._in_proj_halves,
+                 layers.MOE_GROUP)
+
+    def counted(key, fn):
+        def call(*args):
+            calls[key] += 1
+            return fn(*args)
+        return call
+
+    def leaves(model, opt):
+        return [*tree_leaves(model.tree()), *tree_leaves(opt["m"]), *tree_leaves(opt["v"])]
+
+    def halves(x, w):       # ssm._in_proj_halves' own test of its branch
+        product = x.to_local().shape[0] * x.to_local().shape[1] < w.to_local().shape[0]
+        calls["in_proj_product" if product else "in_proj_weight"] += 1
+        return originals[2](x, w)
+
+    layers._moe_sharded = counted("moe_sharded", originals[0])
+    ssm._selective_scan_local = counted("selective_scan_local", originals[1])
+    ssm._in_proj_halves = halves
+    layers.MOE_GROUP = LOCAL_MOE_GROUP
+    torch.cuda.empty_cache()            # Qwen3-MoE's two steps peak at 62.7 GB
+    out, failed = {}, []
+    try:
+        for arch in LOCAL_ARCHS:
+            cfg = dataclasses.replace(get_config(arch), n_layers=LOCAL_LAYERS)
+            L = cfg.n_layers
+            model = lm_api.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+            opt_state = roptim.make_optimizer("adamw").init(model.tree())
+            batch = lm_api.make_train_batch(cfg, 8, 64, np.random.default_rng(0), device=dev)
+            shape = ShapeConfig("train", 64, 8, "train")
+            with devmod.deterministic():
+                t0 = time.perf_counter()
+                p_model, p_opt, p_metrics = rsteps.make_train_step(cfg, shape, **kw)(
+                    model, opt_state, batch, 0)
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t0
+                # the plain step's parameters and moments wait on the host:
+                # two steps' AdamW state do not fit the card beside each
+                # other at Qwen3-MoE's width
+                want = [t.detach().cpu() for t in leaves(p_model, p_opt)]
+                del p_model, p_opt
+                torch.cuda.empty_cache()
+                bundle = rsteps.make_train_step(cfg, shape, mesh, **kw)
+                zero_counts()
+                calls.update(dict.fromkeys(calls, 0))
+                t0 = time.perf_counter()
+                s_model, s_opt, s_metrics = bundle.fn(model, opt_state, batch, 0)
+                torch.cuda.synchronize()
+                sharded_s = time.perf_counter() - t0
+                launched, train_calls = read_counts("dist"), dict(calls)
+            worst = 0.0
+            for a, b in zip(leaves(s_model, s_opt), want):
+                a = (a.full_tensor() if isinstance(a, DTensor) else a).detach()
+                worst = max(worst, float((a.float() - b.to(dev).float()).abs().max()))
+            del want, s_model, s_opt, opt_state
+            metrics = [(float(m["loss"]), float(m["grad_norm"])) for m in (s_metrics, p_metrics)]
+            same = metrics[0] == metrics[1] and worst == 0.0
+            r = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+                 "loss_grad_norm": metrics[0], "plain_loss_grad_norm": metrics[1],
+                 "max_abs_dev": worst, "bit_identical": same, "calls": train_calls,
+                 "launches": launched, "s_sharded": sharded_s, "s_plain": plain_s}
+            # each layer runs twice: the forward and the remat recompute
+            bad = [] if same else ["bit_identical"]
+            if cfg.n_experts:
+                bad += [] if train_calls["moe_sharded"] == 2 * L \
+                    and launched["flash_attention:wgmma"] == 2 * L else ["moe calls"]
+            else:
+                bad += [] if train_calls["selective_scan_local"] == 2 * L \
+                    and train_calls["in_proj_product"] == 2 * L else ["mamba1 calls"]
+                tokens = torch.from_numpy(np.random.default_rng(1).integers(
+                    0, cfg.vocab, (8, LOCAL_PROMPT))).to(dev)
+                calls.update(dict.fromkeys(calls, 0))
+                with devmod.deterministic(), torch.no_grad():
+                    r["serve"] = checks.serve_vs_plain(cfg, model, tokens, mesh, batch=8,
+                                                       prompt=LOCAL_PROMPT, gen=LOCAL_GEN,
+                                                       device=dev, dtype=torch.bfloat16)
+                r["serve_calls"] = dict(calls)
+                # prefill: the weight sliced (4096 tokens); decode: the product
+                want = {"selective_scan_local": LOCAL_GEN * L, "in_proj_weight": L,
+                        "in_proj_product": (LOCAL_GEN - 1) * L}
+                bad += [] if all(calls[k] == v for k, v in want.items()) else ["mamba1 serve calls"]
+                bad += [] if max(r["serve"]["errs"]) <= LOCAL_LOGITS_TOL else ["logits"]
+            del model
+            torch.cuda.empty_cache()
+            phase("dist_local_shard", arch=cfg.name, layers=L, mesh="1x1", backend="nccl",
+                  dtype="bf16", batch=8, seq=64, loss=f"{metrics[0][0]:.6f}",
+                  grad_norm=f"{metrics[0][1]:.6f}", plain_loss=f"{metrics[1][0]:.6f}",
+                  max_abs_dev=f"{worst:.3e}", bit_identical=same,
+                  calls="/".join(f"{k}:{v}" for k, v in train_calls.items() if v),
+                  serve_logits_rel=f"{max(r['serve']['errs']):.3e}" if "serve" in r else "-",
+                  serve_ids_equal=r["serve"]["same_ids"] if "serve" in r else "-",
+                  s_step=f"{sharded_s:.3f}/{plain_s:.3f}", ok=not bad)
+            out[arch] = r
+            failed += [f"{arch}:{k}" for k in bad]
+    finally:
+        (layers._moe_sharded, ssm._selective_scan_local, ssm._in_proj_halves,
+         layers.MOE_GROUP) = originals
+    if failed:
+        raise AssertionError(f"dist_local_shard: {failed} {out}")
+    return out
+
+
+def _gloo_job(mesh_shape, archs) -> dict:
+    """One rank of phase 18: ``launch.checks.local_shard_case`` of each
+    smoke config of ``archs`` on a ``mesh_shape`` ("data", "model") mesh,
+    on the port's seeded fp32 weights (MoE: ``checks.MOE_CAPACITY`` and
+    ``checks.MOE_GROUP``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import checks, mesh as rmesh
+    from repro_torch.models import api as lm_api, layers
+
+    layers.MOE_GROUP = checks.MOE_GROUP
+    mesh = rmesh.make_mesh(mesh_shape, ("data", "model"), device="cpu")
+    out = {}
+    for arch in archs:
+        cfg = get_smoke_config(arch)
+        if cfg.n_experts:
+            cfg = dataclasses.replace(cfg, capacity_factor=checks.MOE_CAPACITY)
+        model = lm_api.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+        batch = lm_api.make_train_batch(cfg, 8, 64, np.random.default_rng(0), device="cpu")
+        out[arch] = checks.local_shard_case(cfg, model, batch, mesh,
+                                            serve=arch != GLOO_SEQ_SPLIT)
+    return out
+
+
+def gloo_phase(report: dict, out_dir: Path) -> None:
+    """Phase 18: the local-shard paths (the MoE dispatch, the Mamba1 scan,
+    the o-projection after a sequence split) on 4 gloo processes of the
+    host's CPU, under the card's PyTorch, against the unsharded step."""
+    from repro_torch.launch import checks
+
+    t_phase = time.perf_counter()
+    results, failed = {}, []
+    tmp = out_dir / "gloo"
+    for mesh_shape, archs in GLOO_CASES.items():
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir(parents=True)
+        t0 = time.perf_counter()
+        try:
+            out = checks.spawn(_gloo_job, (mesh_shape, archs), GLOO_WORLD, tmp,
+                               GLOO_TIMEOUT_S)[0]
+        except Exception as e:
+            raise AssertionError(f"gloo_cpu {mesh_shape}: {e}") from e
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        mesh_name = "x".join(map(str, mesh_shape))
+        for arch, r in out.items():
+            bad = checks.failures(r, seq_split=arch == GLOO_SEQ_SPLIT)
+            t = r["train"]
+            rel = {k: abs(t[k][0] - t[k][1]) / abs(t[k][1]) for k in ("loss", "grad_norm")}
+            phase("gloo_cpu", on="host_cpu_on_purpose", arch=arch, mesh=mesh_name,
+                  loss_rel=f"{rel['loss']:.2e}", grad_norm_rel=f"{rel['grad_norm']:.2e}",
+                  m=f"{t['m']:.2e}", v=f"{t['v']:.2e}", params=f"{t['params']:.2e}",
+                  logits=f"{max(r['serve']['errs']):.2e}" if "serve" in r else "-",
+                  drops="/".join(map(str, r["drops"])), ok=not bad)
+            results[f"{arch}@{mesh_name}"] = r
+            failed += [f"{arch}@{mesh_name}:{k}" for k in bad]
+        results[f"seconds@{mesh_name}"] = time.perf_counter() - t0
+    report["gloo_cpu"] = results
+    if failed:
+        raise AssertionError(f"gloo_cpu: {failed}")
+    phase("gloo_cpu_done", phase_s=f"{time.perf_counter() - t_phase:.2f}")
 
 
 def dryrun_phase(report: dict, smi: str) -> None:
@@ -1884,6 +2130,8 @@ def main() -> int:
     distributed_phase(dev, zero_counts, read_counts, report, smi)
     # 17. the dry-run and the roofline (no kernel runs)
     dryrun_phase(report, smi)
+    # 18. the local-shard paths on 4 gloo processes of the host's CPU
+    gloo_phase(report, out_dir)
 
     # the kernel line, one entry per CUDA source and per design of
     # flash_attention (bf16 and fp32, both from flash_attention_sm90.cu): the

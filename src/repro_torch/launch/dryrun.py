@@ -408,13 +408,19 @@ class CellTimeout(Exception):
 @contextlib.contextmanager
 def _time_limit(seconds: float):
     """Raise :class:`CellTimeout` in this (the main) thread after
-    ``seconds``; no limit off the main thread or for ``seconds`` <= 0."""
+    ``seconds``; no limit off the main thread or for ``seconds`` <= 0. An
+    alarm that lands in a callback which swallows its exception (a garbage
+    collector callback only reports it) still fails the block, when it
+    ends."""
     if seconds <= 0 or threading.current_thread() is not threading.main_thread():
         yield
         return
+    message = f"still counting after {seconds:g} s"
+    fired = []
 
     def expire(signum, frame):
-        raise CellTimeout(f"still counting after {seconds:g} s")
+        fired.append(True)
+        raise CellTimeout(message)
 
     previous = signal.signal(signal.SIGALRM, expire)
     signal.setitimer(signal.ITIMER_REAL, seconds)
@@ -423,6 +429,8 @@ def _time_limit(seconds: float):
     finally:
         signal.setitimer(signal.ITIMER_REAL, 0)
         signal.signal(signal.SIGALRM, previous)
+    if fired:
+        raise CellTimeout(message)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,

@@ -35,7 +35,10 @@ reference's activation-sharding hints, at its call sites: under
 :func:`mesh_hints` they redistribute a DTensor to the hinted placements;
 outside it, or on a plain tensor, they return it as it is. :func:`sdpa` on
 DTensors runs the kernel on each rank's local head shard
-(:func:`_sdpa_local`). Remat (``jax.checkpoint``) is ``lm.remat_call``.
+(:func:`_sdpa_local`); :func:`o_proj` projects a sequence-split attention
+output on local shards; :func:`moe_ffn` dispatches each rank's tokens to
+its own experts (:func:`_moe_sharded`). Remat (``jax.checkpoint``) is
+``lm.remat_call``.
 
 Counting (the dry-run, ``launch/dryrun.py``): on ``meta`` tensors
 :func:`sdpa` computes shapes only (:func:`attention_shape`, whose FLOPs a
@@ -53,6 +56,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
@@ -294,6 +298,57 @@ def merge_heads(x):
     B, S, H = x.shape[:3]
     x = whole_unless_divides(x, 3, 1)        # 1: no split of hd divides it
     return reshape_whole(x, (B, S, -1), 2, H)
+
+
+def o_proj(out, w):
+    """The attention output (B, S, H, hd), its heads merged
+    (:func:`merge_heads`) and projected by ``w`` (H * hd, D), laid out as
+    the reference's ``hint(..., DP, None, None)`` after its GQA and MLA
+    o-projections. Whisper's two cross-attention o-projections (reference
+    whisper.py:84, :165) have no hint in the reference; the port lays them
+    out the same way on purpose, so that every sequence-split projection
+    lands in one layout (Whisper decode's collective bytes at 2x16x16 fall
+    by 62% with it). A DTensor whose sequence
+    is split (:func:`hint_heads`' fallback) is projected on each rank's
+    (batch, sequence) shard against ``w`` made whole: DTensor's product
+    flattens batch with sequence, which some PyTorch releases refuse for a
+    split second dim. ``w``'s gradient is each rank's partial sum,
+    reduce-scattered back to its placements."""
+    x = merge_heads(out)
+    if not (isinstance(x, DTensor) and Shard(1) in x.placements):
+        return hint(x @ w, DP, None, None)
+    mesh = x.device_mesh
+    pl = [p if p in (Shard(0), Shard(1)) else Replicate() for p in x.placements]
+    wl = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if p.is_shard() else Replicate() for p in pl])
+    y = local_work(shard_factor(mesh, pl), torch.matmul, x.redistribute(mesh, pl).to_local(), wl)
+    B, S, D = x.shape[0], x.shape[1], w.shape[1]
+    y = DTensor.from_local(y, mesh, pl, run_check=False, shape=(B, S, D),
+                           stride=(S * D, D, 1))
+    return hint(y, DP, None, None)
+
+
+class _GradPlaced(torch.autograd.Function):
+    """The identity on a DTensor; its backward lays the gradient out as the
+    input's placements."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, t.placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_placed(t):
+    """``t``; on a DTensor, one use of it whose gradient reaches ``t``
+    already laid out as ``t``. Where a parameter has two uses (a tied
+    embedding and head), each use's gradient comes back in a layout of its
+    own, and their sum may convert a split into a pending sum, which some
+    PyTorch releases refuse; laid out alike, they add as they are."""
+    return _GradPlaced.apply(t) if isinstance(t, DTensor) else t
 
 
 def embed(table, tokens):
@@ -666,8 +721,7 @@ def gqa_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cac
                 else _sdpa_dense(q, ck, cv, causal=True, q_offset=cache_pos)
     else:
         out = sdpa(q, k, v, causal=causal)
-    out = merge_heads(hint_heads(out))                                  # reference :275
-    return hint(out @ p["o"], DP, None, None), cache                   # reference :276
+    return o_proj(hint_heads(out), p["o"]), cache                       # reference :275-276
 
 
 def _mla_latent(q_nope, q_rope, c_n, cr, w_uk, w_uv, q_offset: int, scale: float):
@@ -734,8 +788,7 @@ def mla_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cac
         c_n = rms_norm(cc, p["kv_norm"], cfg.norm_eps)    # (B, Sc, kv_lora)
         attend = _mla_latent_local if isinstance(q, DTensor) else _mla_latent
         out = attend(q_nope, q_rope, c_n, cr, w_uk, w_uv, cache_pos, 1.0 / math.sqrt(hd + rd))
-        out = merge_heads(hint_heads(out))                             # reference :320
-        return hint(out @ p["o"], DP, None, None), cache               # reference :321
+        return o_proj(hint_heads(out), p["o"]), cache                   # reference :320-321
     c_n = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
     kv = hint_heads(split_heads(c_n @ p["kv_up"], H))                   # reference :325
     k_nope, v = kv[..., :hd], kv[..., hd:]
@@ -743,8 +796,7 @@ def mla_attention(cfg: ArchConfig, p, x, positions, causal=True, cache=None, cac
     k_full = torch.cat([k_nope, k_rope_b.to(k_nope.dtype)], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     out = sdpa(q_full, k_full, v, causal=causal)
-    out = merge_heads(hint_heads(out))                                 # reference :332
-    return hint(out @ p["o"], DP, None, None), None                    # reference :333
+    return o_proj(hint_heads(out), p["o"]), None                       # reference :332-333
 
 
 # ---------------------------------------------------------------------------
@@ -789,61 +841,196 @@ def moe_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16):
 
 def moe_ffn(cfg: ArchConfig, p, x):
     """x: (B,S,D) -> (B,S,D). Token-choice top-k with capacity dropping,
-    dispatched in groups of MOE_GROUP tokens where the reference does."""
+    dispatched in groups of MOE_GROUP tokens where the reference does. On
+    DTensors each rank dispatches its own tokens (:func:`_moe_sharded`)."""
     B, S, D = x.shape
     T_all = B * S
     # tokens flattened from a batch split unevenly (fewer rows than data-
     # parallel ranks: a microbatch of the 2x16x16 mesh) and back: that
     # split made whole on both sides (whole_unless_divides)
     x2 = reshape_whole(whole_unless_divides(x, 0, B), (T_all, D), 0, B)
-    if T_all > MOE_GROUP and T_all % MOE_GROUP == 0:
-        _, groups = scan(lambda c, g: (c, _moe_group(cfg, p, g)), None, x2.split(MOE_GROUP))
+    if isinstance(x2, DTensor):
+        out = _moe_sharded(cfg, p, x2)
+    elif T_all > MOE_GROUP and T_all % MOE_GROUP == 0:
+        # routed once for all groups, as the sharded path routes a rank's
+        # rows: each token's routing is its own, and the router's gradient
+        # sums all tokens in one product either way
+        routed = zip(*(t.split(MOE_GROUP) for t in (x2, *_route(cfg, x2, p["router"]))))
+        _, groups = scan(lambda c, g: (c, _moe_group(cfg, p, g[0], g[1:])), None, list(routed))
         out = torch.cat(groups)
     else:
         out = _moe_group(cfg, p, x2)
+    if cfg.n_shared_experts:
+        out = out + glu_mlp(cfg, p["shared"], x2)
     return reshape_whole(whole_unless_divides(out, 0, B), (B, S, D), 0, B)
 
 
-def _moe_group(cfg: ArchConfig, p, x2):
-    T, D = x2.shape
-    E, K = cfg.n_experts, cfg.top_k
-    scores = torch.softmax(x2.float() @ p["router"], dim=-1)
-    gvals, gidx = torch.topk(scores, K, dim=-1)                 # (T,K)
-    gvals = (gvals / gvals.sum(dim=-1, keepdim=True)).to(x2.dtype)
-    if isinstance(gidx, DTensor):
-        # the dispatch below is integer bookkeeping without a gradient
-        # (DTensor has no rule for searchsorted): it runs on the whole
-        # index tensor, the same on every rank
-        gidx = gidx.full_tensor()
+def _route(cfg: ArchConfig, x2, router):
+    """(gate values, expert ids), each (T, K): the fp32 softmax over the
+    experts, its top k, renormalised."""
+    scores = torch.softmax(x2.float() @ router, dim=-1)
+    gvals, gidx = torch.topk(scores, cfg.top_k, dim=-1)
+    return (gvals / gvals.sum(dim=-1, keepdim=True)).to(x2.dtype), gidx
 
-    SL = T * K
-    C = max(8, int(cfg.capacity_factor * SL / E))
-    flat_e = gidx.reshape(SL)
-    perm = torch.argsort(flat_e, stable=True)                   # jnp.argsort is stable
+
+def _capacity(cfg: ArchConfig, T: int) -> int:
+    """Slots an expert takes from a group of T tokens."""
+    SL = T * cfg.top_k
+    return max(8, int(cfg.capacity_factor * SL / cfg.n_experts))
+
+
+def _queue(gidx):
+    """The sort-based dispatch's bookkeeping for (T, K) expert ids: (perm,
+    sorted_e, pos). ``perm`` sorts the T * K (token, choice) slots by
+    expert, stably (as jnp.argsort), token-major within an expert; ``pos``
+    is each sorted slot's place in its expert's queue."""
+    flat_e = gidx.reshape(-1)
+    perm = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[perm]
-    tok = perm // K
-    pos = torch.arange(SL, device=x2.device) - torch.searchsorted(sorted_e, sorted_e,
-                                                                  side="left")
-    keep = pos < C
-    dest = torch.where(keep, sorted_e * C + pos, torch.full_like(pos, E * C))  # drop slot
-    gathered = hint(x2[tok], DP, None)      # keep token copies dp-sharded (reference :427)
-    buf = torch.zeros((E * C + 1, D), dtype=x2.dtype, device=x2.device)
-    buf = buf.index_add(0, dest, gathered)
-    xe = hint(buf[: E * C].reshape(E, C, D), "model", None, None)   # EP (reference :430)
+    pos = torch.arange(flat_e.numel(), device=gidx.device) - torch.searchsorted(
+        sorted_e, sorted_e, side="left")
+    return perm, sorted_e, pos
 
-    act = _act(cfg.act)
-    h = act(torch.einsum("ecd,edf->ecf", xe, p["w_gate"])) * torch.einsum(
-        "ecd,edf->ecf", xe, p["w_up"])
-    h = hint(h, "model", None, None)                                 # reference :436
-    ye = hint(torch.einsum("ecf,efd->ecd", h, p["w_down"]),          # reference :437
-              "model", None, None).reshape(E * C, D)
+
+def _expert_glu(cfg: ArchConfig, xe, w_gate, w_up, w_down):
+    """(E, C, D) expert rows through each expert's GLU (reference :436-437)."""
+    h = _act(cfg.act)(torch.einsum("ecd,edf->ecf", xe, w_gate)) * torch.einsum(
+        "ecd,edf->ecf", xe, w_up)
+    return torch.einsum("ecf,efd->ecd", h, w_down)
+
+
+def _dispatch(cfg: ArchConfig, x, gvals, gidx, C: int, Cr: int, experts, glu, before=None):
+    """Tokens x (T, D) with their gate values and expert ids (T, K) through
+    the experts ``experts`` = (first, count), on plain tensors. A slot is
+    kept where its place in its expert's queue is below the capacity C:
+    its place among these tokens, plus ``before[e]`` (E,) slots of expert e
+    taken by earlier tokens of the group when given. The kept slots fill a
+    buffer of Cr rows an expert (Cr = C, or fewer where these tokens cannot
+    give an expert more), ``glu`` maps it (count, Cr, D) to the experts'
+    outputs, and each kept slot's output, times its gate value, is summed
+    into its token (reference :427-441). Returns (T, D)."""
+    T, D = x.shape
+    e0, E_loc = experts
+    perm, sorted_e, lpos = _queue(gidx)
+    pos = lpos if before is None else lpos + before[sorted_e]
+    keep = (pos < C) & (sorted_e >= e0) & (sorted_e < e0 + E_loc)
+    dest = torch.where(keep, (sorted_e - e0) * Cr + lpos,
+                       torch.full_like(lpos, E_loc * Cr))               # the drop slot
+    tok = perm // cfg.top_k
+    buf = torch.zeros((E_loc * Cr + 1, D), dtype=x.dtype, device=x.device)
+    buf = buf.index_add(0, dest, x[tok])
+    ye = glu(buf[:E_loc * Cr].reshape(E_loc, Cr, D)).reshape(E_loc * Cr, D)
     ye = torch.cat([ye, ye.new_zeros((1, D))])
+    contrib = ye[dest] * gvals.reshape(-1)[perm][:, None] * keep[:, None].to(x.dtype)
+    return torch.zeros((T, D), dtype=x.dtype, device=x.device).index_add(0, tok, contrib)
 
-    # reference :440-441
-    contrib = hint(ye[dest], DP, None) * gvals.reshape(SL)[perm][:, None] \
-        * keep[:, None].to(x2.dtype)
-    out = torch.zeros((T, D), dtype=x2.dtype, device=x2.device).index_add(0, tok, contrib)
-    out = hint(out, DP, None)
-    if cfg.n_shared_experts:
-        out = out + glu_mlp(cfg, p["shared"], x2)
-    return out
+
+def _moe_group(cfg: ArchConfig, p, x2, routed=None):
+    """One group of plain tokens (T, D) through all the experts, routed
+    here unless ``routed`` gives their (gate values, expert ids). The
+    reference's hints here (:427, :430, :436-437, :441) lay out DTensors,
+    which take :func:`_moe_sharded`."""
+    gvals, gidx = _route(cfg, x2, p["router"]) if routed is None else routed
+    C = _capacity(cfg, x2.shape[0])
+    return _dispatch(cfg, x2, gvals, gidx, C, C, (0, cfg.n_experts),
+                     lambda xe: _expert_glu(cfg, xe, p["w_gate"], p["w_up"], p["w_down"]))
+
+
+def _moe_sharded(cfg: ArchConfig, p, x2):
+    """:func:`moe_ffn`'s dispatch on DTensor tokens (T, D), each rank on
+    its own tokens and its own experts.
+
+    The tokens keep their split over the data-parallel mesh dims and are
+    whole over the dims that split the experts (``w_gate``'s placements:
+    'model'). Routing runs on the rank's rows. A slot's place in its
+    expert's queue is the reference's, in the stable sort by expert over
+    the whole group: its place among the rank's slots plus the group's
+    slots on the ranks that hold earlier tokens (:func:`_slots_before`, an
+    all-gather of E counts, only where a group spans ranks), so capacity
+    and the dropped slots are the reference's. Each group piece (a group,
+    or the rank's part of one) goes through :func:`_dispatch` with the
+    rank's own experts, the expert GEMMs as DTensor einsums; the combine's
+    sum over the expert dims is the hint's reduction after it.
+    ``index_add``, ``argsort`` and ``searchsorted`` see local tensors only.
+    Groups and token shards must nest (one divides the other)."""
+    mesh = x2.device_mesh
+    T, D = x2.shape
+    G = MOE_GROUP if T > MOE_GROUP and T % MOE_GROUP == 0 else T
+    ep = [i for i, q in enumerate(p["w_gate"].placements) if q == Shard(0)]
+    pl = [Shard(0) if q == Shard(0) and i not in ep else Replicate()
+          for i, q in enumerate(x2.placements)]
+    n = shard_factor(mesh, pl)
+    Tl = T // n
+    if T % n or (Tl % G if Tl >= G else G % Tl):
+        raise ValueError(f"MoE groups of {G} tokens and {n} token shards of {T} tokens "
+                         f"do not nest")
+    tokens = x2 if list(x2.placements) == pl else x2.redistribute(mesh, pl)
+    tok_dims = [i for i, q in enumerate(pl) if q.is_shard()]
+    # gradients of what a rank computes for its own experts only: partial
+    # sums over the expert dims
+    grad_pl = [Partial() if i in ep else q for i, q in enumerate(pl)]
+    gvals, gidx = _route(cfg, tokens, p["router"])      # DTensor ops on the rows
+    gvals = gvals.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+    gidx = gidx.redistribute(mesh, pl).to_local()
+    xl = tokens.to_local(grad_placements=grad_pl)
+    P = min(Tl, G)      # tokens a piece: a whole group, or this rank's part of one
+    _, offset = compute_local_shape_and_global_offset(tokens.shape, mesh, pl)
+    before = (_slots_before(gidx, cfg.n_experts, offset[0] // Tl, G // P, mesh, tok_dims)
+              if P < G else None)
+    e_shape, e_offset = compute_local_shape_and_global_offset(
+        p["w_gate"].shape, mesh, p["w_gate"].placements)
+    experts = (e_offset[0], e_shape[0])
+    buf_pl = [Shard(0) if i in ep else Shard(1) if i in tok_dims else Replicate()
+              for i in range(mesh.ndim)]
+
+    C = _capacity(cfg, G)
+    Cr = min(C, P)      # a piece gives one expert at most P slots
+    ws = [p[k] for k in ("w_gate", "w_up", "w_down")]
+    ep_only = [Shard(0) if i in ep else Replicate() for i in range(mesh.ndim)]
+    # the expert GEMMs meet each rank's rows with the weights' FSDP split:
+    # either the weights are gathered (once for all pieces), or every
+    # rank's rows are, each rank then contracting its own slice of D (and
+    # the products' partial sums reduced); whichever moves fewer elements
+    F = p["w_gate"].shape[2]
+    gather_weights = all(list(w.placements) == ep_only for w in ws) \
+        or 3 * D * F <= n * Cr * 2 * (D + F) * (Tl // P)
+    if gather_weights:
+        ws = [w.redistribute(mesh, ep_only) for w in ws]
+
+    def glu(xe):
+        """The rank's (E_loc, Cr, D) buffer as a DTensor (E, n * Cr, D),
+        rows split as the tokens and experts as the weights, through the
+        expert GLU; the rank's (E_loc, Cr, D) outputs."""
+        xe = DTensor.from_local(xe, mesh, buf_pl, run_check=False,
+                                shape=(cfg.n_experts, n * Cr, D), stride=(n * Cr * D, D, 1))
+        if not gather_weights:
+            xe = xe.redistribute(mesh, ep_only)
+        return _expert_glu(cfg, xe, *ws).redistribute(mesh, buf_pl).to_local()
+
+    def piece(carry, j):
+        part = slice(j * P, (j + 1) * P)
+        return carry, _dispatch(cfg, xl[part], gvals[part], gidx[part], C, Cr, experts, glu,
+                                before)
+
+    _, outs = scan(piece, None, Tl // P)
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    return hint(DTensor.from_local(out, mesh, grad_pl, run_check=False, shape=(T, D),
+                                   stride=(D, 1)), DP, None)                  # reference :441
+
+
+#: a functional all-gather along a dim (renamed ``all_gather_single`` in
+#: newer PyTorch releases, the old name deprecated there)
+_all_gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+
+
+def _slots_before(gidx, E: int, shard: int, span: int, mesh, dims):
+    """(E,) slots of each expert taken by the tokens of this rank's group
+    on the ranks before it: each token shard's counts (1, E), all-gathered
+    over the token dims ``dims`` in shard order; this rank is shard
+    ``shard``, its group spans ``span`` consecutive shards."""
+    flat = gidx.reshape(1, -1)
+    counts = torch.zeros((1, E), dtype=flat.dtype, device=flat.device).scatter_add_(
+        1, flat, torch.ones_like(flat))
+    for i in reversed(dims):        # innermost dim first: shard order, outer dim major
+        counts = _all_gather(counts, 0, (mesh, i))
+    return counts[shard - shard % span:shard].sum(dim=0)

@@ -5,8 +5,10 @@ Port of ``repro/models/ssm.py``. The reference's ``lax.scan`` over time
 here; Mamba1's goes through ``layers.scan``, which the dry-run may cut to a
 few identical steps. The reference splits the Mamba1 scan into remat'd
 chunks of ``SSM_CHUNK`` steps to bound backward memory; the steps and their
-order are the same either way, so this port scans step by step. Mamba2 keeps the SSD
-chunked matmul form (Dao & Gu, 2024) with chunks of ``SSM_CHUNK``.
+order are the same either way, so this port scans step by step (and keeps
+every step's state for backward). Mamba2 keeps the SSD chunked matmul form
+(Dao & Gu, 2024) with chunks of ``SSM_CHUNK``. On DTensors both scans run
+on each rank's own shard (:func:`_selective_scan_local`, :func:`_ssd`).
 
 States are returned as new tensors; the model writes them into its cache
 in place.
@@ -18,7 +20,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .config import ArchConfig
 from .layers import DP, dense_init, hint, local_work, normal, ones, scan, shard_factor, \
@@ -61,19 +63,30 @@ def _causal_conv1d(x, w, b, state=None):
 
 def mamba1_scan(p, x, h0=None):
     """Selective scan. x: (B,S,di) post-conv/act. Returns (y, h_final),
-    h: (B, di, N) fp32."""
-    B, S, di = x.shape
+    h: (B, di, N) fp32. On DTensors the projections are DTensor ops and
+    each rank scans its own shard (:func:`_selective_scan_local`)."""
     N = p["A_log"].shape[1]
     R = p["dt_proj"].shape[0]
     A = -torch.exp(p["A_log"])                                  # (di,N)
 
     proj = x @ p["x_proj"]                                      # (B,S,R+2N)
+    if isinstance(proj, DTensor):
+        # reduced over the channels once, before the slices: dt's product
+        # then takes dt_proj's channel split, Bm and Cm stay whole there
+        proj = hint(proj, DP, None, None)
     dt = F.softplus(proj[..., :R].float() @ p["dt_proj"].float() + p["dt_bias"])
     Bm = proj[..., R:R + N].float()                             # (B,S,N)
     Cm = proj[..., R + N:].float()                              # (B,S,N)
-    xf = x.float()
+    scan_fn = _selective_scan_local if isinstance(x, DTensor) else _selective_scan
+    y, h = scan_fn(x.float(), dt, Bm, Cm, A, p["D"], h0)
+    return y.to(x.dtype), h
 
-    h = x.new_zeros((B, di, N), dtype=torch.float32) if h0 is None else h0
+
+def _selective_scan(xf, dt, Bm, Cm, A, D, h0=None):
+    """The scan over positions: xf, dt (B,S,di), Bm, Cm (B,S,N), A (di,N),
+    D (di,), h0 (B,di,N) or None. Returns (y (B,S,di) fp32, h_final)."""
+    B, S, di = xf.shape
+    h = xf.new_zeros((B, di, A.shape[1])) if h0 is None else h0
 
     def step(h, t):
         dA = torch.exp(dt[:, t, :, None] * A[None])             # (B,di,N)
@@ -82,8 +95,37 @@ def mamba1_scan(p, x, h0=None):
         return h, torch.einsum("bdn,bn->bd", h, Cm[:, t])
 
     h, ys = scan(step, h, S)
-    y = torch.stack(ys, dim=1) + xf * p["D"][None, None, :]
-    return y.to(x.dtype), h
+    return torch.stack(ys, dim=1) + xf * D[None, None, :], h
+
+
+def _selective_scan_local(xf, dt, Bm, Cm, A, D, h0=None):
+    """:func:`_selective_scan` on DTensors, each rank over its own batch
+    rows and channels with no collective per position (the scan is
+    independent per row and per channel, as Mamba2's :func:`_ssd`): xf and
+    dt laid out by batch and channels where xf has them, Bm and Cm by
+    batch, A, D and h0 by the channels (h0 by batch too), N whole. y and h
+    come back as DTensors split as xf."""
+    mesh = xf.device_mesh
+    pl = [p if p in (Shard(0), Shard(2)) else Replicate() for p in xf.placements]
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+    chans = [Shard(0) if p == Shard(2) else Replicate() for p in pl]
+    state = [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2) else Replicate()
+             for p in pl]
+    # a rank's gradients of what it shares: partial sums over the splits it
+    # does not share (Bm, Cm over the channels; A, D over the batch)
+    bc_grad = [Partial() if p == Shard(2) else q for p, q in zip(pl, rows)]
+    param_grad = [Partial() if p == Shard(0) else q for p, q in zip(pl, chans)]
+    local = lambda t, tp, grad=None: t.redistribute(mesh, tp).to_local(grad_placements=grad)
+    y, h = local_work(shard_factor(mesh, pl), _selective_scan, local(xf, pl), local(dt, pl),
+                      local(Bm, rows, bc_grad), local(Cm, rows, bc_grad),
+                      local(A, chans, param_grad),
+                      local(D, chans, param_grad), None if h0 is None else local(h0, state))
+    B, S, di = xf.shape
+    N = A.shape[1]
+    return (DTensor.from_local(y, mesh, pl, run_check=False, shape=(B, S, di),
+                               stride=(S * di, di, 1)),
+            DTensor.from_local(h, mesh, state, run_check=False, shape=(B, di, N),
+                               stride=(di * N, N, 1)))
 
 
 def mamba1_block(cfg: ArchConfig, p, x, state=None):
@@ -91,16 +133,41 @@ def mamba1_block(cfg: ArchConfig, p, x, state=None):
 
     state: None (train/prefill) or dict(conv, h) for decode.
     """
-    xz = hint(x @ p["in_proj"], DP, None, "model")              # reference ssm.py:124
     di = cfg.d_inner
-    xs, z = xz[..., :di], xz[..., di:]
+    if isinstance(x, DTensor):
+        xs, z = _in_proj_halves(x, p["in_proj"])
+    else:
+        xz = hint(x @ p["in_proj"], DP, None, "model")          # reference ssm.py:124
+        xs, z = xz[..., :di], xz[..., di:]
     conv_state = None if state is None else state["conv"]
     xc, new_conv = _causal_conv1d(xs, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc)
     h0 = None if state is None else state["h"]
     y, h = mamba1_scan(p, xc, h0)
     y = y * F.silu(z)
-    return y @ p["out_proj"], {"conv": new_conv, "h": h}
+    out = y @ p["out_proj"]
+    if isinstance(out, DTensor):
+        out = hint(out, DP, None, None)     # the channels' partial sums reduced in bf16
+    return out, {"conv": new_conv, "h": h}
+
+
+def _in_proj_halves(x, w):
+    """The x and z halves of ``x @ w`` on DTensors (``w``: in_proj, (d,
+    2 di)), each hinted as the reference hints the product (reference
+    ssm.py:124). DTensor slices a split dim by gathering it whole: slicing
+    the product gathers a rank's (rows, 2 di) activations, slicing the
+    weight its (d / FSDP split, 2 di) shard, after which each half takes
+    the weight's column split again (a local chunk). The smaller is
+    gathered: the product at decode, the weight at train and prefill."""
+    di = w.shape[1] // 2
+    xl = x.to_local()
+    if xl.shape[0] * xl.shape[1] < w.to_local().shape[0]:
+        xz = hint(x @ w, DP, None, "model")
+        return xz[..., :di], xz[..., di:]
+    mesh = w.device_mesh
+    whole = w.redistribute(mesh, [Replicate() if p == Shard(1) else p for p in w.placements])
+    return tuple(hint(x @ whole[:, a:a + di].redistribute(mesh, w.placements), DP, None, "model")
+                 for a in (0, di))
 
 
 def mamba1_init_state(cfg: ArchConfig, batch, dtype=torch.bfloat16, device=None):

@@ -88,7 +88,7 @@ def _cross_attention(cfg, p, x, enc_out):
     k = L.split_heads(enc_out @ p["k"], cfg.n_kv_heads)
     v = L.split_heads(enc_out @ p["v"], cfg.n_kv_heads)
     out = L.sdpa(q, k, v, causal=False)
-    return L.merge_heads(out) @ p["o"]
+    return L.o_proj(out, p["o"])
 
 
 def _dec_block(cfg, lp, x, positions, enc_out):
@@ -103,12 +103,13 @@ def _dec_block(cfg, lp, x, positions, enc_out):
 def decode_train(cfg: ArchConfig, params, tokens, enc_out, remat: bool = True):
     """Teacher-forced decoder pass. tokens: (B, S_dec) -> logits (B, S_dec, V)."""
     B, S = tokens.shape
-    x = L.embed(params["tok_embed"], tokens)
+    # the tied table's two uses, each gradient laid out as the table
+    x = L.embed(L.grad_placed(params["tok_embed"]), tokens)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for lp in params["dec_layers"]:
         x = remat_call(remat, functools.partial(_dec_block, cfg, lp), x, positions, enc_out)
     x = L.rms_norm(x, params["dec_norm"], cfg.norm_eps)
-    return x @ params["tok_embed"].mT
+    return x @ L.grad_placed(params["tok_embed"]).mT
 
 
 def loss_fn(cfg: ArchConfig, params, batch, remat: bool = True):
@@ -158,7 +159,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
         xq = L.rms_norm(x, lp["ln_x"], cfg.norm_eps)
         q = L.split_heads(xq @ lp["cross_attn"]["q"], cfg.n_heads)
         out = L.sdpa(q, cache["xk"][i], cache["xv"][i], causal=False)
-        x = x + L.merge_heads(out) @ lp["cross_attn"]["o"]
+        x = x + L.o_proj(out, lp["cross_attn"]["o"])
         x = x + L.glu_mlp(cfg, lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
     x = L.rms_norm(x, params["dec_norm"], cfg.norm_eps)
     return x @ params["tok_embed"].mT, cache

@@ -21,6 +21,7 @@ import math
 from typing import Any, Callable, List
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 
 def tree_map(f: Callable, tree, *rest):
@@ -145,6 +146,18 @@ def adafactor_init(params):
     }
 
 
+def _reduced(t):
+    """A DTensor's pending sums or means (a mean over a sharded dim)
+    reduced, its shards kept; a plain tensor as it is. Left pending, the
+    factored statistics make the update's elementwise ops reduce them onto
+    the layer dim of the stacked leaf, and unstacking it then gathers every
+    layer."""
+    if not isinstance(t, DTensor) or not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in t.placements])
+
+
 @torch.no_grad()
 def adafactor_update(params, grads, state, lr, b1=0.9, decay=0.99, eps=1e-30, wd=0.0):
     """One step over the stacked layout (:func:`_stacked`), so that each
@@ -155,8 +168,8 @@ def adafactor_update(params, grads, state, lr, b1=0.9, decay=0.99, eps=1e-30, wd
         g32 = g.float()
         g2 = g32.square() + eps
         if _factored(p.shape):
-            vr = decay * v["vr"] + (1 - decay) * g2.mean(dim=-1)
-            vc = decay * v["vc"] + (1 - decay) * g2.mean(dim=-2)
+            vr = _reduced(decay * v["vr"] + (1 - decay) * g2.mean(dim=-1))
+            vc = _reduced(decay * v["vc"] + (1 - decay) * g2.mean(dim=-2))
             denom = vr[..., None] / vr.mean(dim=-1, keepdim=True)[..., None] * vc[..., None, :]
             u = g32 * torch.rsqrt(denom + eps)
             new_v = {"vr": vr, "vc": vc}

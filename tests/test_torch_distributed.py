@@ -46,29 +46,19 @@ within ``TIMEOUT`` seconds.
 """
 import os
 import pickle
-import time
-import traceback
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
+
+from repro_torch.launch import checks
 
 WORLD = 4
 TIMEOUT = 240
-REL = 1e-5
-# AdamW's first step divides each gradient element by its own magnitude
-# (u = g / (|g| + eps)), so where a gradient element is near eps the fp32
-# rounding of the gradient moves the parameter by up to lr * O(1): the
-# updated parameters get a looser gate against the unsharded step than the
-# gradients (the moments) do (measured: 9.1e-4 for Zamba2, 2.1e-4 at most
-# for the others), and a tight one against the AdamW update of the sharded
-# step's own moments (SELF_REL; measured 0.0: each gradient is reduced to
-# its parameter's layout before the update, launch.steps.value_and_grad).
-REL_PARAMS = 5e-3
-SELF_REL = 1e-6
-TRAIN_SHAPE = ("t", 64, 8, "train")
+# the gates (REL, REL_PARAMS, SELF_REL: see launch/checks.py)
+REL, REL_PARAMS, SELF_REL = checks.REL, checks.REL_PARAMS, checks.SELF_REL
+TRAIN_SHAPE = checks.TRAIN_SHAPE
 SPMD_ARCHS = ["tinyllama_1_1b", "qwen3_moe_30b_a3b", "falcon_mamba_7b"]
 #: the other configs, each family's sharded path (MLA + MTP, Mamba2 with the
 #: shared attention block, the encoder-decoder, GQA widths that the 2-way
@@ -103,49 +93,18 @@ def _ref_inputs(arch, path, batch=8, seq=64, overrides=None):
                      "overrides": overrides or {}}, f)
 
 
-def _rank_main(rank, job, arch, tmp, extra):
-    torch.set_num_threads(1)
-    store = dist.FileStore(os.path.join(tmp, "store"), WORLD)
-    dist.init_process_group("gloo", store=store, rank=rank, world_size=WORLD)
-    try:
-        with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
-            inputs = pickle.load(f)
-        out = JOBS[job](arch, inputs, extra)
-        err = None
-    except Exception:
-        out, err = None, traceback.format_exc()
-    finally:
-        dist.destroy_process_group()
-    with open(os.path.join(tmp, f"result_{rank}.pkl"), "wb") as f:
-        pickle.dump({"out": out, "err": err}, f)
+def _run(job, arch, tmp, extra):
+    with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    return (JOBS[job] if isinstance(job, str) else job)(arch, inputs, extra)
 
 
 def _spawn(job, arch, tmp, extra=None):
-    """Run ``job`` on WORLD ranks; rank 0's result (any rank's error raises).
-    A test may spawn more than once in its directory: each spawn starts a
-    fresh store."""
-    store = os.path.join(tmp, "store")
-    if os.path.exists(store):
-        os.remove(store)
-    ctx = mp.start_processes(_rank_main, args=(job, arch, str(tmp), extra), nprocs=WORLD,
-                             join=False, start_method="spawn")
-    deadline = time.monotonic() + TIMEOUT
-    try:
-        while not ctx.join(timeout=1):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"{job}[{arch}] ran past {TIMEOUT} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    results = []
-    for r in range(WORLD):
-        with open(os.path.join(tmp, f"result_{r}.pkl"), "rb") as f:
-            results.append(pickle.load(f))
-    errs = [r["err"] for r in results if r["err"]]
-    assert not errs, errs[0]
-    return results[0]["out"]
+    """Run ``job`` (a name in JOBS, or a module-level function of a test
+    module) on WORLD ranks (``launch.checks.spawn``); rank 0's result (any
+    rank's error raises). A test may spawn more than once in its directory:
+    each spawn starts a fresh store."""
+    return checks.spawn(_run, (job, arch, str(tmp), extra), WORLD, tmp, TIMEOUT)[0]
 
 
 def _model(arch, inputs):
@@ -164,12 +123,7 @@ def _mesh(shape=(2, 2)):
     return tmesh.make_mesh(shape, ("data", "model"), device="cpu")
 
 
-def _rel(a, b):
-    """max |a - b| over max |b| (gathering a DTensor: every rank calls it)."""
-    from repro_torch.launch.sharding import gather
-
-    a, b = gather(a).detach().float(), gather(b).detach().float()
-    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+_rel = checks.rel
 
 
 # ---------------------------------------------------------------------------
@@ -178,85 +132,14 @@ def _rel(a, b):
 
 
 def _job_train(arch, inputs, mesh_shape):
-    from torch.distributed.tensor.debug import CommDebugMode
-
-    from repro_torch.launch import steps
-    from repro_torch.models.config import ShapeConfig
-    from repro_torch.optim import make_optimizer
-    from repro_torch.optim.optimizers import tree_leaves
-
     cfg, model = _model(arch, inputs)
-    shape = ShapeConfig(*TRAIN_SHAPE)
     batch = {k: torch.from_numpy(v) for k, v in inputs["batch"].items()}
-    kw = dict(optimizer="adamw", lr=1e-3, warmup=0, total_steps=10)
-    opt_state = make_optimizer("adamw").init(model.tree())
-
-    plain = steps.make_train_step(cfg, shape, **kw)
-    p_model, p_opt, p_metrics = plain(model, opt_state, batch, 0)
-
-    bundle = steps.make_train_step(cfg, shape, _mesh(mesh_shape or (2, 2)), **kw)
-    with CommDebugMode() as comm:
-        s_model, s_opt, s_metrics = bundle.fn(model, opt_state, batch, 0)
-    counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
-    # the AdamW update (optim.adamw_update, step 1) of the sharded moments
-    lr, (b1, b2, eps, wd) = s_metrics["lr"], (0.9, 0.95, 1e-8, 0.1)
-    bc1, bc2 = 1 - b1 ** torch.ones(()), 1 - b2 ** torch.ones(())
-
-    def adamw(p, m, v):
-        m, v = (t.full_tensor() for t in (m, v))
-        u = (m / bc1) / (torch.sqrt(v / bc2) + eps) + wd * p.float()
-        return (p.float() - lr * u).to(p.dtype)
-    sharded = sum(1 for p in s_model.parameters()
-                  if any(not pl.is_replicate() for pl in p.placements))
-    return {
-        "loss": (float(s_metrics["loss"]), float(p_metrics["loss"])),
-        "grad_norm": (float(s_metrics["grad_norm"]), float(p_metrics["grad_norm"])),
-        "params": max(_rel(a, b) for a, b in zip(tree_leaves(s_model.tree()),
-                                                  tree_leaves(p_model.tree()))),
-        "self": max(_rel(a, adamw(p, m, v)) for a, p, m, v in zip(
-            tree_leaves(s_model.tree()), tree_leaves(model.tree()), tree_leaves(s_opt["m"]),
-            tree_leaves(s_opt["v"]))),
-        "m": max(_rel(a, b) for a, b in zip(tree_leaves(s_opt["m"]), tree_leaves(p_opt["m"]))),
-        "v": max(_rel(a, b) for a, b in zip(tree_leaves(s_opt["v"]), tree_leaves(p_opt["v"]))),
-        "moved": max(float((a - b).abs().max()) for a, b in zip(tree_leaves(p_model.tree()),
-                                                                 tree_leaves(model.tree()))),
-        "counts": counts,
-        "sharded_leaves": sharded,
-        "leaves": len(list(s_model.parameters())),
-    }
+    return checks.train_vs_plain(cfg, model, batch, _mesh(mesh_shape or (2, 2)))
 
 
 def _job_serve(arch, inputs, batch):
-    from repro_torch.launch import steps
-    from repro_torch.models import api as tapi
-    from repro_torch.models.config import ShapeConfig
-
     cfg, model = _model(arch, inputs)
-    S, G = 16, 4
-    shape = ShapeConfig("s", S + G, batch, "decode")
-    mesh = _mesh()
-    prefill = steps.make_serve_step(cfg, shape, mesh, "prefill")
-    decode = steps.make_serve_step(cfg, shape, mesh, "decode")
-    prompt = torch.from_numpy(inputs["tokens"][:batch, :S])
-    cache = tapi.init_cache(cfg, batch, S + G, torch.float32, "cpu")
-    ref_cache = tapi.init_cache(cfg, batch, S + G, torch.float32, "cpu")
-
-    logits, cache = prefill.fn(model, {"tokens": prompt}, cache)
-    with torch.no_grad():
-        ref, ref_cache = tapi.prefill(cfg, model, prompt, ref_cache)
-    errs, same_ids = [_rel(logits, ref)], True
-    placements = {"logits": str(logits.placements),
-                  "cache": {k: str(v.placements) for k, v in cache.items()}}
-    tok = ref[:, -1].argmax(-1, keepdim=True)
-    for i in range(G - 1):
-        logits, cache = decode.fn(model, cache, tok, S + i)
-        with torch.no_grad():
-            ref, ref_cache = tapi.decode_step(cfg, model, ref_cache, tok, S + i)
-        errs.append(_rel(logits, ref))
-        full = logits.full_tensor()
-        same_ids &= bool(torch.equal(full[:, -1].argmax(-1), ref[:, -1].argmax(-1)))
-        tok = ref[:, -1].argmax(-1, keepdim=True)
-    return {"errs": errs, "same_ids": same_ids, "placements": placements}
+    return checks.serve_vs_plain(cfg, model, torch.from_numpy(inputs["tokens"]), _mesh(), batch)
 
 
 def _job_reshard(arch, inputs, tmp):
@@ -410,16 +293,8 @@ def inputs(tmp_path, request):
 
 
 def assert_train_equal(r):
-    for key in ("loss", "grad_norm"):
-        got, want = r[key]
-        assert np.isfinite(got) and abs(got - want) <= REL * abs(want), (key, got, want)
-    assert r["m"] <= REL and r["v"] <= REL, r
-    assert r["params"] <= REL_PARAMS and r["self"] <= SELF_REL, (r["params"], r["self"])
-    assert r["moved"] > 1e-4, r                 # the step changed the weights (lr 1e-3)
-    assert r["sharded_leaves"] > 0, r
-    coll = sum(r["counts"].get(k, 0) for k in ("all_gather_into_tensor", "reduce_scatter_tensor",
-                                                 "all_reduce"))
-    assert coll > 0, r["counts"]
+    assert np.isfinite(r["loss"][0]) and np.isfinite(r["grad_norm"][0]), r
+    assert not checks.train_failures(r), (checks.train_failures(r), r)
 
 
 @pytest.mark.parametrize("inputs", SPMD_ARCHS + OTHER_ARCHS, indirect=True)

@@ -188,7 +188,8 @@ PREFILL = ShapeConfig("p", 64, 4, "prefill")
     ("tinyllama_1_1b", TRAIN, 4, None),                                # microbatches
     ("tinyllama_1_1b", ShapeConfig("d", 64, 4, "decode"), None, 5),    # layers, decode
     ("zamba2_7b", PREFILL, None, 9),                                   # hybrid groups
-    ("qwen3_moe_30b_a3b", ShapeConfig("p", 32_768, 4, "prefill"), None, None),  # MoE groups
+    # MoE groups: 8 x 32768 tokens over 2 data ranks, 4 groups a rank
+    ("qwen3_moe_30b_a3b", ShapeConfig("p", 32_768, 8, "prefill"), None, None),
 ], ids=["mamba1_train", "mamba1_prefill", "microbatches", "layers_decode", "hybrid_groups",
         "moe_groups"])
 def test_trip_count_shortcut_is_exact(arch, shape, microbatches, layers):
@@ -231,6 +232,28 @@ def test_a_cell_past_its_time_limit_fails():
     c = dryrun.run_cell("tinyllama_1_1b", "train_4k", timeout_s=0.5)
     assert c["status"] == "failed" and c["error"].startswith("CellTimeout"), c.get("error")
     assert not torch.distributed.is_initialized()
+
+
+def test_a_timeout_swallowed_by_a_callback_still_fails_the_cell():
+    """The alarm may land in a garbage-collector callback (the JAX runtime
+    in the same process registers one), which only reports the exception:
+    the time limit raises when the block ends all the same."""
+    import gc
+    import time
+
+    def busy(phase, info):
+        if phase == "start":
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < 0.3:
+                pass
+
+    gc.callbacks.append(busy)
+    try:
+        with pytest.raises(dryrun.CellTimeout, match="after 0.1 s"):
+            with dryrun._time_limit(0.1):
+                gc.collect()
+    finally:
+        gc.callbacks.remove(busy)
 
 
 def test_cli_writes_out_and_skips_unsupported_cells(tmp_path):
