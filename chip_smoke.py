@@ -205,6 +205,22 @@ without one). Phases, one line each:
              counted, logits within 1e-5, greedy ids equal, dropped slots in
              the MoE train steps and prefills, SmolLM's attention output
              split over batch and sequence. No kernel runs.
+19. remat_memory
+             the memory that recomputing in backward saves, each layer alone
+             at its published widths, forward and backward against a fixed
+             upstream gradient under ``device.deterministic()``, the peak
+             (``max_memory_allocated``) above inputs and parameters: one
+             Falcon-Mamba-7B Mamba1 block on 2 x 4096 bf16 tokens (16 scan
+             chunks of 256 steps against ``ssm.SSM_CHUNK`` = 4096: one chunk
+             whose backward keeps every step), one Qwen3-MoE FFN on 4 x 32768
+             tokens (four groups, each recomputed, against the same four
+             ``_moe_group`` calls kept), and that FFN through
+             ``_moe_sharded`` on a 1x1 NCCL mesh (pieces recomputed against
+             ``layers.recompute`` made a plain call); each line with the drop
+             predicted from what autograd keeps (``remat_predictions``) and
+             the card's name and power limit. Gates: outputs and gradients
+             bit-identical, the drop at least half the predicted one, no
+             kernel launched.
 
 Every count of kernel launches is set to 0 just before a path runs and read
 just after it. Then one JSON line with an entry per kernel and per design of
@@ -304,6 +320,14 @@ GLOO_CASES = {(2, 2): ("qwen3_moe_30b_a3b", "deepseek_v3_671b", "falcon_mamba_7b
               (1, 4): ("qwen3_moe_30b_a3b", "deepseek_v3_671b", "falcon_mamba_7b"),
               (4, 1): ("qwen3_moe_30b_a3b",)}
 GLOO_SEQ_SPLIT = "smollm_360m"
+#: phase 19: each layer that recomputes in backward, alone at its published
+#: widths: one Mamba1 block of Falcon-Mamba-7B on 2 x 4096 bf16 tokens (16
+#: scan chunks of 256 steps), one MoE FFN of Qwen3-MoE on 4 x 32768 (four
+#: token groups of the reference's MOE_GROUP); the measured drop in peak
+#: memory must reach REMAT_MIN_SHARE of the predicted one
+REMAT_MAMBA = ("falcon_mamba_7b", 2, 4096)
+REMAT_MOE = ("qwen3_moe_30b_a3b", 4, 32_768)
+REMAT_MIN_SHARE = 0.5
 
 N_EVAL = 40
 TRAIN_STEPS = 600
@@ -1111,6 +1135,227 @@ def local_shard_steps_1x1(dev, mesh, kw, zero_counts, read_counts) -> dict:
     if failed:
         raise AssertionError(f"dist_local_shard: {failed} {out}")
     return out
+
+
+def saved_bytes(fn, *args, exclude=()) -> int:
+    """Bytes of the storages autograd keeps for backward while ``fn(*args)``
+    runs, each storage once, less those of the ``exclude`` tensors (inputs
+    and parameters, held anyway); on meta tensors, what they would take."""
+    import torch
+
+    skip = {t.untyped_storage()._cdata for t in exclude}
+    kept = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st._cdata not in skip:
+            kept[st._cdata] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        fn(*args)
+    return sum(kept.values())
+
+
+def remat_predictions(dev) -> dict:
+    """Phase 19's predicted drops in peak memory, from what autograd keeps
+    (:func:`saved_bytes`) with nothing recomputed (``recompute`` made a
+    plain call): a Mamba1 scan step's bytes (12 steps less 4, at
+    Falcon-Mamba-7B's widths, on ``dev``), so the one-chunk baseline keeps
+    S - 256 steps more and 15 chunk starting states fewer; one MoE group's
+    bytes at Qwen3-MoE's widths on meta tensors (nothing allocated), of
+    which the baseline keeps three more (the chunked run rebuilds one group
+    at a time). ``python -c "import chip_smoke as c;
+    print(c.remat_predictions('cpu'))"`` gives them on the CPU."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, ssm
+
+    plain = lambda fn, *a: fn(*a)
+    arch, B, S = REMAT_MAMBA
+    cfg = get_config(arch)
+    di, N = cfg.d_inner, cfg.ssm_state
+
+    def scan_bytes(steps):
+        leaf = lambda *shape: torch.rand(*shape, device=dev).requires_grad_(True)
+        args = (leaf(B, steps, di), leaf(B, steps, di), leaf(B, steps, N), leaf(B, steps, N),
+                -leaf(di, N), leaf(di))
+        return saved_bytes(ssm._selective_scan, *args, exclude=args)
+
+    orig = ssm.recompute
+    ssm.recompute = plain
+    try:
+        step = (scan_bytes(12) - scan_bytes(4)) // 8
+    finally:
+        ssm.recompute = orig
+    state = B * di * N * 4
+    chunks = S // ssm.SSM_CHUNK
+    mamba = (S - ssm.SSM_CHUNK) * step - (chunks - 1) * state
+
+    arch, B, S = REMAT_MOE
+    mcfg = get_config(arch)
+    E, D, F = mcfg.n_experts, mcfg.d_model, mcfg.d_expert_ff
+    meta = lambda shape, dtype=torch.bfloat16: torch.empty(
+        shape, dtype=dtype, device="meta").requires_grad_(True)
+    p = {"router": meta((D, E), torch.float32), "w_gate": meta((E, D, F)),
+         "w_up": meta((E, D, F)), "w_down": meta((E, F, D))}
+    x = meta((layers.MOE_GROUP, D))
+    routed = layers._route(mcfg, x, p["router"])
+    group = saved_bytes(layers._moe_group, mcfg, p, x, routed,
+                        exclude=[x, *routed, *p.values()])
+    groups = B * S // layers.MOE_GROUP
+    return {"mamba1_step_bytes": step, "mamba1_drop_bytes": mamba,
+            "moe_group_bytes": group, "moe_drop_bytes": (groups - 1) * group}
+
+
+def remat_memory_phase(dev, zero_counts, read_counts, report: dict, smi: str) -> None:
+    """Phase 19: the memory that recomputing in backward saves, each layer
+    alone at its published widths (REMAT_MAMBA, REMAT_MOE), forward and
+    backward against a fixed upstream gradient under
+    ``device.deterministic()``; a peak is ``max_memory_allocated`` above
+    the inputs and parameters. Mamba1: ``ssm.mamba1_block`` chunked, then
+    with ``ssm.SSM_CHUNK`` = S (one chunk of S steps, whose backward keeps
+    every step). MoE: ``layers.moe_ffn`` (each group recomputed), then the
+    same routing and four ``layers._moe_group`` calls with nothing
+    recomputed; then both on the 1x1 NCCL mesh through
+    ``layers._moe_sharded`` (its pieces recomputed, then ``layers.recompute``
+    made a plain call). Gates: outputs and gradients bit-identical, the
+    drop at least REMAT_MIN_SHARE of the predicted one
+    (:func:`remat_predictions`), no kernel launched."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import device as devmod
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as rmesh, sharding as shd
+    from repro_torch.models import layers, ssm
+
+    t_phase = time.perf_counter()
+    pred = remat_predictions(dev)
+    gib = 2.0 ** 30
+    plain = lambda fn, *a: fn(*a)
+
+    def measured(fn):
+        """(fn()'s outputs and gradients as plain tensors, peak bytes above
+        what was allocated before, seconds)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with devmod.deterministic():
+            got = [t.full_tensor() if isinstance(t, DTensor) else t for t in fn()]
+        torch.cuda.synchronize()
+        return got, torch.cuda.max_memory_allocated() - base, time.perf_counter() - t0
+
+    def grads(out, leaves, g):
+        return [out.detach(), *torch.autograd.grad(out, leaves, g)]
+
+    results, failed = {}, []
+
+    def record(name, cfg, tokens, runs, predicted, **extra):
+        (a, peak_a, s_a), (b, peak_b, s_b) = runs
+        same = len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+        drop = peak_b - peak_a
+        ok = same and drop >= REMAT_MIN_SHARE * predicted
+        r = {"arch": cfg.name, "tokens": tokens, "peak_bytes": peak_a,
+             "baseline_peak_bytes": peak_b, "drop_bytes": drop, "predicted_drop_bytes": predicted,
+             "bit_identical": same, "s": s_a, "baseline_s": s_b, "card": smi, **extra}
+        results[name] = r
+        phase("remat_memory", layer=name, arch=cfg.name, tokens=tokens,
+              peak_gib=f"{peak_a / gib:.3f}", baseline_peak_gib=f"{peak_b / gib:.3f}",
+              drop_gib=f"{drop / gib:.3f}", predicted_drop_gib=f"{predicted / gib:.3f}",
+              bit_identical=same, s=f"{s_a:.2f}/{s_b:.2f}",
+              **{k: v for k, v in extra.items()}, card=smi.replace(" ", "_"))
+        if not ok:
+            failed.append(name)
+
+    zero_counts()
+    torch.cuda.empty_cache()
+    # Mamba1: one block, chunked against one chunk of S steps
+    arch, B, S = REMAT_MAMBA
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = {k: v.requires_grad_(True) for k, v in ssm.mamba1_params(cfg, gen).items()}
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    x.requires_grad_(True)
+    g = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    block = lambda: grads(ssm.mamba1_block(cfg, p, x)[0], [x, *p.values()], g)
+    runs = [measured(block)]
+    chunk = ssm.SSM_CHUNK
+    ssm.SSM_CHUNK = S
+    try:
+        runs.append(measured(block))
+    finally:
+        ssm.SSM_CHUNK = chunk
+    record("mamba1_block", cfg, f"{B}x{S}", runs, pred["mamba1_drop_bytes"],
+           chunks=S // chunk, step_mib=f"{pred['mamba1_step_bytes'] / 2 ** 20:.3f}")
+    del p, x, g, runs
+
+    # MoE: moe_ffn's groups recomputed, against the same groups kept
+    arch, B, S = REMAT_MOE
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = {k: v.requires_grad_(True) for k, v in layers.moe_params(cfg, gen).items()}
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    x.requires_grad_(True)
+    g = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    leaves = [x, *p.values()]
+
+    def kept():
+        x2 = x.reshape(B * S, cfg.d_model)
+        routed = zip(*(t.split(layers.MOE_GROUP) for t in
+                       (x2, *layers._route(cfg, x2, p["router"]))))
+        return torch.cat([layers._moe_group(cfg, p, xg, (gv, gi))
+                          for xg, gv, gi in routed]).reshape(B, S, cfg.d_model)
+
+    groups = B * S // layers.MOE_GROUP
+    runs = [measured(lambda: grads(layers.moe_ffn(cfg, p, x), leaves, g)),
+            measured(lambda: grads(kept(), leaves, g))]
+    record("moe_ffn", cfg, f"{B}x{S}", runs, pred["moe_drop_bytes"], groups=groups,
+           group_gib=f"{pred['moe_group_bytes'] / gib:.3f}")
+    del runs
+
+    # the same layer through _moe_sharded on the 1x1 NCCL mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = rmesh.make_smoke_mesh(device=dev)
+        dp = {"router": shd.place(p["router"].detach(), (Replicate(), Replicate()), mesh),
+              **{k: shd.place(p[k].detach(), (Replicate(), Shard(0)), mesh)
+                 for k in ("w_gate", "w_up", "w_down")}}
+        dx = shd.place(x.detach(), (Shard(0), Replicate()), mesh)
+        dg = shd.place(g, (Shard(0), Replicate()), mesh)
+        dleaves = [t.requires_grad_(True) for t in (dx, *dp.values())]
+
+        def sharded():
+            with implicit_replication(), layers.mesh_hints(mesh):
+                return grads(layers.moe_ffn(cfg, dp, dx), dleaves, dg)
+
+        runs = [measured(sharded)]
+        recompute = layers.recompute
+        layers.recompute = plain
+        try:
+            runs.append(measured(sharded))
+        finally:
+            layers.recompute = recompute
+        record("moe_ffn_sharded", cfg, f"{B}x{S}", runs, pred["moe_drop_bytes"],
+               groups=groups, mesh="1x1", backend="nccl")
+        del runs, dp, dx, dg, dleaves
+    finally:
+        dist.destroy_process_group()
+    del p, x, g, leaves
+    torch.cuda.empty_cache()
+    launched = read_counts("remat")
+    if any(launched.values()):
+        failed.append(f"launches {launched}")
+    report["remat_memory"] = {"predicted": pred, "layers": results, "launches": launched,
+                              "card": smi}
+    phase("remat_memory_done", phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    if failed:
+        raise AssertionError(f"remat_memory: {failed} {results}")
 
 
 def _gloo_job(mesh_shape, archs) -> dict:
@@ -2132,6 +2377,8 @@ def main() -> int:
     dryrun_phase(report, smi)
     # 18. the local-shard paths on 4 gloo processes of the host's CPU
     gloo_phase(report, out_dir)
+    # 19. the memory that recomputing in backward saves (no kernel runs)
+    remat_memory_phase(dev, zero_counts, read_counts, report, smi)
 
     # the kernel line, one entry per CUDA source and per design of
     # flash_attention (bf16 and fp32, both from flash_attention_sm90.cu): the

@@ -289,10 +289,17 @@ class Counter:
         trips, trips 0, 1, 2 run; if trips 1 and 2 count the same, the other
         trips count as trip 2 (and, through a bracket around trip 1, their
         backward as trip 1's), their outputs stand in as trip 2's. Otherwise
-        every trip runs."""
+        every trip runs.
+
+        The skipped trips are counted ahead, as trip 1, before trip 2 runs,
+        and taken back if trip 2 differs: a checkpoint's recompute in
+        backward (``layers.recompute``) stops at the last tensor its
+        forward kept, which may lie in trip 2, and so never returns to count
+        them after it; the uncut loop's recompute stops at the same place in
+        its last trip, having run the others."""
         n, ys, times = len(xs), [], [0]
         grad = torch.is_grad_enabled()
-        prev = None
+        prev = ahead = None
         for i, x in enumerate(xs):
             cut = self.shortcut and n > self.MIN_TRIPS
             marked = False
@@ -306,11 +313,15 @@ class Counter:
                 (carry, y), _ = _marked(end, (carry, y))
             ys.append(y)
             delta = _delta(before, after)
-            if cut and i == self.MIN_TRIPS - 1 and delta == prev:
-                times[0] = n - self.MIN_TRIPS
-                self._add(before, after, times[0])
-                self.trips[f"{n}/{self.MIN_TRIPS}"] += 1
-                return carry, ys + [ys[-1]] * times[0]
+            if cut and i == self.MIN_TRIPS - 2:
+                ahead = (before, after)
+                self._add(*ahead, n - self.MIN_TRIPS)
+            if cut and i == self.MIN_TRIPS - 1:
+                if delta == prev:
+                    times[0] = n - self.MIN_TRIPS
+                    self.trips[f"{n}/{self.MIN_TRIPS}"] += 1
+                    return carry, ys + [ys[-1]] * times[0]
+                self._add(*ahead, self.MIN_TRIPS - n)
             prev = delta
         if n > self.MIN_TRIPS:
             self.trips[f"{n}/{n}"] += 1

@@ -38,7 +38,9 @@ DTensors runs the kernel on each rank's local head shard
 (:func:`_sdpa_local`); :func:`o_proj` projects a sequence-split attention
 output on local shards; :func:`moe_ffn` dispatches each rank's tokens to
 its own experts (:func:`_moe_sharded`). Remat (``jax.checkpoint``) is
-``lm.remat_call``.
+:func:`recompute`: ``lm.remat_call`` around each block, and inside a block
+around each MoE token group (:func:`moe_ffn`) and each Mamba1 scan chunk
+(``ssm._selective_scan``), where the reference checkpoints them.
 
 Counting (the dry-run, ``launch/dryrun.py``): on ``meta`` tensors
 :func:`sdpa` computes shapes only (:func:`attention_shape`, whose FLOPs a
@@ -153,6 +155,16 @@ def scan(body, carry, xs, cut: bool = True):
         carry, y = body(carry, x)
         ys.append(y)
     return carry, ys
+
+
+def recompute(fn, *args):
+    """``fn(*args)``, its activations recomputed in backward instead of
+    kept (``torch.utils.checkpoint``, non-reentrant) whenever grad is
+    enabled: the reference's ``jax.checkpoint``. Autograd keeps the tensor
+    arguments only; under no_grad it is a plain call."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def shard_factor(mesh, *placements) -> int:
@@ -841,8 +853,14 @@ def moe_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16):
 
 def moe_ffn(cfg: ArchConfig, p, x):
     """x: (B,S,D) -> (B,S,D). Token-choice top-k with capacity dropping,
-    dispatched in groups of MOE_GROUP tokens where the reference does. On
-    DTensors each rank dispatches its own tokens (:func:`_moe_sharded`)."""
+    dispatched in groups of MOE_GROUP tokens where the reference does (more
+    tokens than MOE_GROUP, a multiple of it). Each such group is recomputed
+    in backward (:func:`recompute`), as the reference checkpoints it
+    (reference :394-405): its gathered slots, its (E * C + 1, D) buffer and
+    its expert GLU's intermediates are rebuilt from the group's tokens and
+    routing instead of being kept for every group. On DTensors each rank
+    dispatches its own tokens (:func:`_moe_sharded`), each piece of a group
+    recomputed the same way."""
     B, S, D = x.shape
     T_all = B * S
     # tokens flattened from a batch split unevenly (fewer rows than data-
@@ -856,7 +874,8 @@ def moe_ffn(cfg: ArchConfig, p, x):
         # rows: each token's routing is its own, and the router's gradient
         # sums all tokens in one product either way
         routed = zip(*(t.split(MOE_GROUP) for t in (x2, *_route(cfg, x2, p["router"]))))
-        _, groups = scan(lambda c, g: (c, _moe_group(cfg, p, g[0], g[1:])), None, list(routed))
+        group = lambda x, gvals, gidx: _moe_group(cfg, p, x, (gvals, gidx))
+        _, groups = scan(lambda c, g: (c, recompute(group, *g)), None, list(routed))
         out = torch.cat(groups)
     else:
         out = _moe_group(cfg, p, x2)
@@ -952,7 +971,10 @@ def _moe_sharded(cfg: ArchConfig, p, x2):
     rank's own experts, the expert GEMMs as DTensor einsums; the combine's
     sum over the expert dims is the hint's reduction after it.
     ``index_add``, ``argsort`` and ``searchsorted`` see local tensors only.
-    Groups and token shards must nest (one divides the other)."""
+    Groups and token shards must nest (one divides the other). Where the
+    tokens make more than one group, each piece is recomputed in backward
+    (:func:`recompute`; the weights' gather stays outside it, the rows'
+    gather is made again), as the reference checkpoints each group."""
     mesh = x2.device_mesh
     T, D = x2.shape
     G = MOE_GROUP if T > MOE_GROUP and T % MOE_GROUP == 0 else T
@@ -1007,12 +1029,14 @@ def _moe_sharded(cfg: ArchConfig, p, x2):
             xe = xe.redistribute(mesh, ep_only)
         return _expert_glu(cfg, xe, *ws).redistribute(mesh, buf_pl).to_local()
 
-    def piece(carry, j):
-        part = slice(j * P, (j + 1) * P)
-        return carry, _dispatch(cfg, xl[part], gvals[part], gidx[part], C, Cr, experts, glu,
-                                before)
+    dispatch = lambda x, gv, gi: _dispatch(cfg, x, gv, gi, C, Cr, experts, glu, before)
 
-    _, outs = scan(piece, None, Tl // P)
+    def piece(carry, args):
+        return carry, recompute(dispatch, *args) if G < T else dispatch(*args)
+
+    # the pieces' tokens as the trips' inputs, which the dry-run's counter
+    # brackets to count a skipped piece's backward
+    _, outs = scan(piece, None, list(zip(*(t.split(P) for t in (xl, gvals, gidx)))))
     out = torch.cat(outs) if len(outs) > 1 else outs[0]
     return hint(DTensor.from_local(out, mesh, grad_pl, run_check=False, shape=(T, D),
                                    stride=(D, 1)), DP, None)                  # reference :441

@@ -25,8 +25,9 @@ return the same dict.
 
 Training: ``remat`` (the reference's ``jax.checkpoint`` per block) becomes
 ``torch.utils.checkpoint`` per block, non-reentrant, whenever grad is
-enabled; the attention of each recomputed block goes through the kernel
-again (``layers.FlashAttention``).
+enabled (``layers.recompute``), and per hybrid group around the blocks'
+own; the attention of each recomputed block goes through the kernel again
+(``layers.FlashAttention``).
 
 API (the reference's, with a model in place of the pytree):
   init_params(cfg, gen)                         -> model
@@ -44,7 +45,6 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
-from torch.utils.checkpoint import checkpoint
 
 from .. import device as devmod
 from . import layers as L, ssm as S
@@ -174,9 +174,7 @@ def remat_call(remat: bool, fn, *args):
     """``fn(*args)``, its activations recomputed in backward
     (``torch.utils.checkpoint``, non-reentrant) when ``remat`` and grad is
     enabled: the reference's ``jax.checkpoint`` around a scanned block."""
-    if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    return L.recompute(fn, *args) if remat else fn(*args)
 
 
 def _blocks(cfg: ArchConfig, params, x, positions, cache=None, cache_pos=None,
@@ -186,9 +184,14 @@ def _blocks(cfg: ArchConfig, params, x, positions, cache=None, cache_pos=None,
     :func:`remat_call`. The layers go through ``layers.scan`` (the
     reference's ``lax.scan``s), one trip per layer, or per group of
     ``attn_every`` SSM layers and the shared attention block (hybrid), so
-    the trips are alike; a hybrid stack's tail layers follow. The dry-run
-    cuts them short only where no gradient is taken: a skipped layer's
-    parameters would get none."""
+    the trips are alike; a hybrid stack's tail layers follow. With remat, a
+    hybrid group is recomputed as a whole around its blocks' own remat, the
+    shared attention block inside it with no checkpoint of its own, as the
+    reference checkpoints ``group`` around ``block`` (reference
+    lm.py:170-188): the forward keeps each group's input, not each
+    block's; the tail layers keep their own. The dry-run cuts the layers
+    short only where no gradient is taken: a skipped layer's parameters
+    would get none."""
     remat = remat and cache is None
     layers = params["layers"]
     cut = not torch.is_grad_enabled()
@@ -212,11 +215,13 @@ def _blocks(cfg: ArchConfig, params, x, positions, cache=None, cache_pos=None,
     def group(x, g):
         # attn_every ssm blocks, then the shared attention block with this
         # group's own KV history
-        for i in range(g * k, (g + 1) * k):
-            x = ssm(x, i)
-        ac = None if cache is None else {"k": cache["attn_k"][g], "v": cache["attn_v"][g]}
-        return remat_call(remat, functools.partial(_attn_block, cfg, params["shared_attn"]),
-                          x, positions, ac, cache_pos), None
+        def body(x):
+            for i in range(g * k, (g + 1) * k):
+                x = ssm(x, i)
+            ac = None if cache is None else {"k": cache["attn_k"][g], "v": cache["attn_v"][g]}
+            return _attn_block(cfg, params["shared_attn"], x, positions, ac, cache_pos)
+
+        return remat_call(remat, body, x), None
 
     x = L.scan(group, x, len(layers) // k, cut)[0]
     for i in range(len(layers) // k * k, len(layers)):

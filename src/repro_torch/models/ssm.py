@@ -2,13 +2,16 @@
 
 Port of ``repro/models/ssm.py``. The reference's ``lax.scan`` over time
 (Mamba1) and over chunks (Mamba2's inter-chunk recurrence) are Python loops
-here; Mamba1's goes through ``layers.scan``, which the dry-run may cut to a
-few identical steps. The reference splits the Mamba1 scan into remat'd
-chunks of ``SSM_CHUNK`` steps to bound backward memory; the steps and their
-order are the same either way, so this port scans step by step (and keeps
-every step's state for backward). Mamba2 keeps the SSD chunked matmul form
-(Dao & Gu, 2024) with chunks of ``SSM_CHUNK``. On DTensors both scans run
-on each rank's own shard (:func:`_selective_scan_local`, :func:`_ssd`).
+here; Mamba1's go through ``layers.scan``, which the dry-run may cut to a
+few identical trips. Mamba1 scans in chunks of ``SSM_CHUNK`` steps where
+that divides the length, else in one chunk, each chunk recomputed in
+backward (``layers.recompute``), by the reference's rule (reference
+ssm.py:92-110): autograd keeps the state at each chunk's start, and a
+chunk's per-step states (``exp``'s output, ``dt * B``, the new state) are
+rebuilt while that chunk's backward runs, not kept for every step. Mamba2
+keeps the SSD chunked matmul form (Dao & Gu, 2024) with chunks of
+``SSM_CHUNK``. On DTensors both scans run on each rank's own shard
+(:func:`_selective_scan_local`, :func:`_ssd`).
 
 States are returned as new tensors; the model writes them into its cache
 in place.
@@ -23,8 +26,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .config import ArchConfig
-from .layers import DP, dense_init, hint, local_work, normal, ones, scan, shard_factor, \
-    split_heads
+from .layers import DP, dense_init, hint, local_work, normal, ones, recompute, scan, \
+    shard_factor, split_heads
 
 SSM_CHUNK = 256
 
@@ -84,18 +87,31 @@ def mamba1_scan(p, x, h0=None):
 
 def _selective_scan(xf, dt, Bm, Cm, A, D, h0=None):
     """The scan over positions: xf, dt (B,S,di), Bm, Cm (B,S,N), A (di,N),
-    D (di,), h0 (B,di,N) or None. Returns (y (B,S,di) fp32, h_final)."""
+    D (di,), h0 (B,di,N) or None. Returns (y (B,S,di) fp32, h_final).
+
+    The positions go in chunks of ``SSM_CHUNK`` steps when that divides S,
+    else in one chunk of S (reference ssm.py:96-110); each chunk runs under
+    ``layers.recompute``, so backward keeps the states at chunk boundaries
+    and rebuilds a chunk's steps when it reaches them. Chunks and the steps
+    within one go through ``layers.scan``."""
     B, S, di = xf.shape
     h = xf.new_zeros((B, di, A.shape[1])) if h0 is None else h0
 
-    def step(h, t):
-        dA = torch.exp(dt[:, t, :, None] * A[None])             # (B,di,N)
-        dBx = dt[:, t, :, None] * Bm[:, t, None, :] * xf[:, t, :, None]
+    def step(h, inp):
+        x_t, dt_t, B_t, C_t = inp
+        dA = torch.exp(dt_t[..., None] * A[None])               # (B,di,N)
+        dBx = dt_t[..., None] * B_t[:, None, :] * x_t[..., None]
         h = h * dA + dBx
-        return h, torch.einsum("bdn,bn->bd", h, Cm[:, t])
+        return h, torch.einsum("bdn,bn->bd", h, C_t)
 
-    h, ys = scan(step, h, S)
-    return torch.stack(ys, dim=1) + xf * D[None, None, :], h
+    def chunk(h, *seq):
+        h, ys = scan(step, h, list(zip(*(t.unbind(1) for t in seq))))
+        return h, torch.stack(ys, dim=1)
+
+    steps = SSM_CHUNK if S % SSM_CHUNK == 0 else S
+    chunks = zip(*(t.split(steps, dim=1) for t in (xf, dt, Bm, Cm)))
+    h, ys = scan(lambda h, c: recompute(chunk, h, *c), h, list(chunks))
+    return torch.cat(ys, dim=1) + xf * D[None, None, :], h
 
 
 def _selective_scan_local(xf, dt, Bm, Cm, A, D, h0=None):

@@ -9,7 +9,8 @@
   layers less two count two layers' worth (the Python layer loops count
   every layer: nothing to unroll); the trip-count shortcut of
   ``layers.scan`` (Mamba1's scan, train and prefill; the microbatch loop;
-  the MoE token groups) counts exactly what every trip counts.
+  the MoE token groups; in train steps, Mamba1's chunks and the MoE's
+  groups recomputed in backward) counts exactly what every trip counts.
 * ``layers.attention_shape`` (shapes only, on meta tensors) is reached only
   for meta: the kernel wrapper still raises on a device without a kernel.
 * ``launch.dryrun`` at 16x16: TinyLlama train_4k is "ok", a skipped cell is
@@ -182,17 +183,24 @@ def test_four_layers_less_two_count_two_layers():
 PREFILL = ShapeConfig("p", 64, 4, "prefill")
 
 
-@pytest.mark.parametrize("arch,shape,microbatches,layers", [
-    ("falcon_mamba_7b", TRAIN, None, None),                            # scan + backward
-    ("falcon_mamba_7b", PREFILL, None, 5),                             # scan, layers
-    ("tinyllama_1_1b", TRAIN, 4, None),                                # microbatches
-    ("tinyllama_1_1b", ShapeConfig("d", 64, 4, "decode"), None, 5),    # layers, decode
-    ("zamba2_7b", PREFILL, None, 9),                                   # hybrid groups
+@pytest.mark.parametrize("arch,shape,microbatches,layers,moe_group", [
+    ("falcon_mamba_7b", TRAIN, None, None, None),                         # scan + backward
+    ("falcon_mamba_7b", PREFILL, None, 5, None),                          # scan, layers
+    ("tinyllama_1_1b", TRAIN, 4, None, None),                             # microbatches
+    ("tinyllama_1_1b", ShapeConfig("d", 64, 4, "decode"), None, 5, None),  # layers, decode
+    ("zamba2_7b", PREFILL, None, 9, None),                                # hybrid groups
     # MoE groups: 8 x 32768 tokens over 2 data ranks, 4 groups a rank
-    ("qwen3_moe_30b_a3b", ShapeConfig("p", 32_768, 8, "prefill"), None, None),
+    ("qwen3_moe_30b_a3b", ShapeConfig("p", 32_768, 8, "prefill"), None, None, None),
+    # recomputed in backward: 4 scan chunks of 256 steps; 8 x 64 tokens
+    # over 2 data ranks in groups of 64, 4 pieces a rank
+    ("falcon_mamba_7b", ShapeConfig("t", 1024, 2, "train"), None, 1, None),
+    ("qwen3_moe_30b_a3b", TRAIN, None, None, 64),
 ], ids=["mamba1_train", "mamba1_prefill", "microbatches", "layers_decode", "hybrid_groups",
-        "moe_groups"])
-def test_trip_count_shortcut_is_exact(arch, shape, microbatches, layers):
+        "moe_groups", "mamba1_train_chunks", "moe_train_groups"])
+def test_trip_count_shortcut_is_exact(arch, shape, microbatches, layers, moe_group,
+                                      monkeypatch):
+    if moe_group:
+        monkeypatch.setattr(tlayers, "MOE_GROUP", moe_group)
     cfg = tconfigs.get_smoke_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)

@@ -21,7 +21,8 @@ reference's fp32 smoke weights) at the same tolerances:
   over batch and sequence before the o-projection, asserted): a train step;
 * the dry-run's counter on a fake 2x2 group with meta tensors counts the
   same collectives and bytes as on the gloo mesh (the train steps of
-  Qwen3-MoE, one group across both data ranks, and Falcon-Mamba), and one
+  Qwen3-MoE, one group across both data ranks or two recomputed pieces a
+  rank, and Falcon-Mamba), and one
   MoE layer's dispatch and combine count exactly their hand count;
 * groups that do not nest in the token shards raise.
 """
@@ -55,7 +56,13 @@ def _job_case(arch, inputs, mesh_shape):
                                    serve=arch != "smollm_360m")
 
 
-def _job_count(arch, inputs, _extra):
+def _job_count(arch, inputs, moe_group):
+    """The counts on the gloo mesh, the port's MOE_GROUP at ``moe_group``
+    when given."""
+    from repro_torch.models import layers
+
+    if moe_group:
+        layers.MOE_GROUP = moe_group
     return count_cases(arch, inputs, _mesh(), "cpu")
 
 
@@ -93,17 +100,24 @@ def test_sequence_split_o_projection_equals_unsharded(tmp_path):
     assert not checks.failures(r, seq_split=True), (checks.failures(r, seq_split=True), r)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "falcon_mamba_7b"])
-def test_fake_group_counts_equal_gloo_on_local_shard_paths(tmp_path, arch):
+@pytest.mark.parametrize("arch,moe_group", [
+    ("qwen3_moe_30b_a3b", None), ("falcon_mamba_7b", None), ("qwen3_moe_30b_a3b", 128)],
+    ids=["qwen3_moe_30b_a3b", "falcon_mamba_7b", "qwen3_moe_30b_a3b_groups"])
+def test_fake_group_counts_equal_gloo_on_local_shard_paths(tmp_path, arch, moe_group,
+                                                           monkeypatch):
     """The train step (at the default MOE_GROUP one group spans both data
-    ranks, so the expert counts are all-gathered)."""
+    ranks, so the expert counts are all-gathered; with groups of 128, two
+    pieces a rank, each recomputed in backward)."""
     from repro_torch.launch import dryrun
+    from repro_torch.models import layers
 
     overrides = MOE_OVERRIDES if arch == "qwen3_moe_30b_a3b" else None
     _ref_inputs(arch, tmp_path / "inputs.pkl", overrides=overrides)
-    real = _spawn(_job_count, arch, tmp_path)
+    real = _spawn(_job_count, arch, tmp_path, moe_group)
     with open(tmp_path / "inputs.pkl", "rb") as f:
         inputs = pickle.load(f)
+    if moe_group:
+        monkeypatch.setattr(layers, "MOE_GROUP", moe_group)
     with dryrun.fake_group(WORLD):
         fake = count_cases(arch, inputs, _mesh(), "meta")
     assert fake == real
