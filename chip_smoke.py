@@ -104,10 +104,11 @@ without one). Phases, one line each:
              in prefill, all of the wgmma design, and 0 in decode, ids
              within the vocabulary, finite logits
 11. lm_consistency
-             the same weights cast to fp32: ``forward`` over prompt +
-             generated tokens (the kernel's wgmma3 design) against prefill
-             + decode (kernel prefill, plain decode) at the generated
-             positions; max relative deviation below 2e-2
+             the same weights cast to fp32: greedy prefill + decode
+             (kernel prefill, plain decode) against ``forward`` over the
+             prompt and the tokens generated (the kernel's wgmma3 design)
+             at those positions (``decode_vs_forward``); max relative
+             deviation below 2e-2
              (tests/test_models.py's bound); all 2 x 22 launches wgmma3
 12. lm_cpu_parity
              the TinyLlama smoke config on identical seeded fp32 weights on
@@ -221,13 +222,42 @@ without one). Phases, one line each:
              the card's name and power limit. Gates: outputs and gradients
              bit-identical, the drop at least half the predicted one, no
              kernel launched.
+20. lm_families
+             the nine configurations but TinyLlama, in ARCH_IDS order, each
+             at its published widths on seeded bf16 weights on the card,
+             depth cut only where ``family_plan`` finds the weights too
+             large (DeepSeek-V3: 1 layer, its MTP block and MoE included),
+             served through ``launch.serve.generate``: 2 prompts of 512
+             tokens (Whisper: 1500 stub frames) and 16 tokens after a
+             warm-up; prefill seconds, decode ms/step, the family's peak
+             memory above what was allocated before it (set-up included),
+             each beside the plan's reckoning. Gates: ids of the right shape
+             within the vocabulary, finite logits, flash_attention's
+             launches in prefill and in decode equal to the plan's
+             (``flash_calls``: per attention layer in prefill for the GQA
+             families, one per group for Zamba2, none for DeepSeek-V3's
+             absorbed MLA cache or Falcon-Mamba, Whisper's 6 encoder layers
+             in prefill, its 6 cross-attentions on every decode step and
+             its 6 self-attentions at position 0),
+             all of the wgmma design, no other kernel launched. Then fp32
+             at published widths (depth 2; Zamba2 7: a group and a tail
+             block; Whisper whole; DeepSeek-V3 at its smoke config), MoE
+             capacity with no drops: ``forward`` (Whisper: ``encode`` +
+             ``decode_train``) against greedy prefill + decode at the
+             generated positions (16; Zamba2 257, so that the forward's
+             768 tokens split into whole SSD chunks) within 2e-2, every launch wgmma3 and as
+             many as the plan says; then the smoke config on identical
+             fp32 weights on the card and on the CPU: prefill and 3 decode
+             steps' logits within rtol = atol = 1e-4. One line per family,
+             with the card's name and power limit.
 
 Every count of kernel launches is set to 0 just before a path runs and read
 just after it. Then one JSON line with an entry per kernel and per design of
 flash_attention (``{"kernels": [...]}``; each entry also gives its CUDA
 launches per call, its time above the launch floor and its launches per
 path: "table4" for phases 4-7, "vt3", "lm" for phases 10-12,
-"serve_cosim" for 13, "train" for 14-15 and "dist" for 16), the card's
+"serve_cosim" for 13, "train" for 14-15, "dist" for 16 and "families" for
+20), the card's
 nvidia-smi line
 and, last, the result line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -236,6 +266,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import shutil
@@ -328,6 +359,21 @@ GLOO_SEQ_SPLIT = "smollm_360m"
 REMAT_MAMBA = ("falcon_mamba_7b", 2, 4096)
 REMAT_MOE = ("qwen3_moe_30b_a3b", 4, 32_768)
 REMAT_MIN_SHARE = 0.5
+#: phase 20: every configuration but LM_ARCH (phase 10's) served through
+#: launch.serve.generate on seeded bf16 weights at its published widths:
+#: FAMILY_BATCH prompts of FAMILY_PROMPT tokens (Whisper: AUDIO_ENC_FRAMES
+#: stub frames), FAMILY_GEN tokens; depth cut only where the parameters and
+#: their reckoned set-up peak (family_plan) would pass FAMILY_MEM_LIMIT of
+#: the card's 80 GB. The fp32 forward against prefill + decode runs at
+#: published widths, depth cut to the least that holds every kind of layer
+#: (FAMILY_FP32_LAYERS, else 2; Whisper whole), MoE capacity raised so that
+#: no token drops (tests/test_models.py:53 does the same); card against CPU
+#: at the smoke configs: a prompt of FAMILY_CPU_PROMPT tokens, then
+#: FAMILY_CPU_STEPS decode steps
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 2, 512, 16
+FAMILY_MEM_LIMIT = 72e9
+FAMILY_FP32_LAYERS = {"zamba2_7b": 7, "whisper_base": None}
+FAMILY_CPU_PROMPT, FAMILY_CPU_STEPS = 24, 3
 
 N_EVAL = 40
 TRAIN_STEPS = 600
@@ -1473,9 +1519,342 @@ def dryrun_phase(report: dict, smi: str) -> None:
     phase("dryrun_done", phase_s=f"{time.perf_counter() - t_phase:.2f}")
 
 
-def main() -> int:
+def flash_calls(cfg, steps: int) -> dict:
+    """flash_attention calls, read from the model code, of one prefill, of
+    ``steps`` decode steps after it and of one no-cache forward (the audio
+    family: ``encode`` + ``decode_train``) of ``cfg``. Every attention
+    without a cache goes through ``layers.sdpa``, and so does GQA's
+    prefill (``gqa_attention`` at cache_pos 0); GQA's decode and MLA's
+    cached (absorbed) path attend in plain ops. Zamba2 attends once per
+    group of ``attn_every`` SSM layers (``lm._blocks``). Whisper's decode
+    (``whisper.decode_step``) runs each layer's cross-attention through
+    the kernel on every step, and its first step, at position 0, each
+    self-attention too: ``gqa_attention`` takes its cache_pos 0 branch."""
+    if cfg.family == "audio":
+        return {"prefill": cfg.n_enc_layers,
+                "decode": cfg.n_dec_layers * (steps + (steps > 0)),
+                "forward": cfg.n_enc_layers + 2 * cfg.n_dec_layers}
+    attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}.get(cfg.family,
+                                                                             cfg.n_layers)
+    return {"prefill": 0 if cfg.use_mla else attn, "decode": 0, "forward": attn}
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _activation_bytes(cfg, B: int, S: int, gen: int) -> int:
+    """A reckoning of what one layer of a bf16 prefill of B x S tokens
+    (Whisper: its encoder over AUDIO_ENC_FRAMES) holds at once at its
+    widest, and the last position's logits: per token the widest of the
+    residual stream's four tensors, attention's q, k, v and output with
+    their (B, H, S, D) copies, the GLU's three (B, S, d_ff), Mamba1's x|z
+    and four fp32 (d_inner) tensors, Mamba2's projection and three fp32
+    ones; plus MoE's gathered slots, buffer and expert GLU, MLA's fp32
+    latent scores (three of them) and the SSD's decay blocks."""
+    from repro_torch.models.api import AUDIO_ENC_FRAMES
+
+    T = B * (AUDIO_ENC_FRAMES if cfg.family == "audio" else S)
+    d, hd8 = cfg.d_model, -(-cfg.hd // 8) * 8
+    per_token = [4 * d * 2, 2 * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd8 * 2,
+                 3 * cfg.d_ff * 2]
+    H = cfg.d_inner // cfg.ssm_head_dim if cfg.family == "hybrid" else 0
+    if cfg.family == "ssm":
+        per_token.append(2 * cfg.d_inner * 2 + 4 * cfg.d_inner * 4)
+    if cfg.family == "hybrid":
+        per_token.append((2 * cfg.d_inner + 2 * cfg.ssm_state + H) * 2 + 3 * cfg.d_inner * 4)
+    out = T * max(per_token) + B * cfg.vocab * 4
+    if cfg.n_experts:
+        C = max(8, int(cfg.capacity_factor * T * cfg.top_k / cfg.n_experts))
+        out += (3 * T * cfg.top_k * d + 2 * cfg.n_experts * C * d
+                + 3 * cfg.n_experts * C * cfg.d_expert_ff) * 2
+    if cfg.use_mla:
+        out += 3 * B * cfg.n_heads * S * (S + gen) * 4 + T * cfg.n_heads * cfg.kv_lora_rank * 2
+    if cfg.family == "hybrid":
+        c = min(256, S)
+        out += 2 * B * (S // c) * H * c * c * 4
+    return out
+
+
+def family_plan() -> dict:
+    """Phase 20's plan, computed on meta tensors (nothing allocated), one
+    entry per configuration of ``ARCH_IDS`` (LM_ARCH's too, which phase 10
+    serves): ``cfg``, ``get_config(arch)`` with its depth cut only where
+    the bf16 weights and the set-up's peak (every weight, and the largest
+    one's fp32 draw and bf16 copy beside it: ``layers.normal``) would pass
+    FAMILY_MEM_LIMIT, to the most layers that stay below it; ``reduced``,
+    each field changed, as (published, served); ``param_bytes``;
+    ``peak_bytes``, the reckoned peak (set-up, or weights + cache +
+    :func:`_activation_bytes`, whichever is larger); ``launches``, the
+    flash_attention launches ``generate`` makes in prefill and in decode
+    (all FAMILY_GEN - 1 steps; :func:`flash_calls`); ``fp32_cfg``, the
+    consistency check's config (depth FAMILY_FP32_LAYERS or 2 at published
+    widths, or the smoke config where 2 layers' fp32 weights pass the
+    limit; MoE capacity E / top_k, where C = T: no drops), ``fp32_base``
+    ("published" or "smoke"), ``fp32_reduced`` against that base and
+    ``fp32_launches`` (forward + prefill + decode)."""
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.launch.steps import abstract_params
+    from repro_torch.models import api as lm_api
+    from repro_torch.models.ssm import SSM_CHUNK
+
+    def weights(cfg):
+        sizes = [p.numel() * p.element_size() for p in abstract_params(cfg).parameters()]
+        return sum(sizes), max(sizes)
+
+    def changed(base, cfg):
+        return {f.name: (getattr(base, f.name), getattr(cfg, f.name))
+                for f in dataclasses.fields(cfg) if getattr(base, f.name) != getattr(cfg, f.name)}
+
+    B, P, G = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN
+    plan = {}
+    for arch in ARCH_IDS:
+        pub = cfg = get_config(arch)
+        params, largest = weights(cfg)
+        if params + 2 * largest > FAMILY_MEM_LIMIT:
+            one, _ = weights(dataclasses.replace(pub, n_layers=1))
+            two, _ = weights(dataclasses.replace(pub, n_layers=2))
+            depth = int((FAMILY_MEM_LIMIT - 2 * largest - one) // (two - one)) + 1
+            cfg = dataclasses.replace(pub, n_layers=max(1, min(depth, pub.n_layers)))
+            params, largest = weights(cfg)
+        audio = cfg.family == "audio"
+        cache = _nbytes(lm_api.init_cache(cfg, B, (0 if audio else P) + G, device="meta"))
+        calls = flash_calls(cfg, G - 1)
+
+        depth = FAMILY_FP32_LAYERS.get(arch, 2)
+        base, fcfg = pub, pub if depth is None else dataclasses.replace(pub, n_layers=depth)
+        if 2 * weights(fcfg)[0] > FAMILY_MEM_LIMIT:
+            base = fcfg = get_smoke_config(arch)
+        if fcfg.n_experts:
+            fcfg = dataclasses.replace(fcfg, capacity_factor=fcfg.n_experts / fcfg.top_k)
+        # a hybrid forward's length must split into whole SSD chunks
+        # (mamba2_ssd, the reference's too, takes S <= SSM_CHUNK or a
+        # multiple of it): its prompt + SSM_CHUNK + 1 generated tokens
+        fgen = SSM_CHUNK + 1 if fcfg.family == "hybrid" else G
+        fcalls = flash_calls(fcfg, fgen - 1)
+        plan[arch] = {
+            "cfg": cfg, "reduced": changed(pub, cfg), "param_bytes": params,
+            "peak_bytes": max(params + 2 * largest,
+                              params + cache + _activation_bytes(cfg, B, P, G)),
+            "launches": {"prefill": calls["prefill"], "decode": calls["decode"]},
+            "fp32_cfg": fcfg, "fp32_base": "smoke" if base is not pub else "published",
+            "fp32_reduced": changed(base, fcfg), "fp32_gen": fgen,
+            "fp32_launches": fcalls["forward"] + fcalls["prefill"] + fcalls["decode"],
+        }
+    return plan
+
+
+def family_inputs(cfg, batch: int, length: int, device, dtype, seed: int = 0):
+    """A prompt as ``launch.serve.serve_llm`` draws it from numpy's
+    generator at ``seed``: token ids (batch, length), or for the audio
+    family stub frames (batch, AUDIO_ENC_FRAMES, d_model) in ``dtype``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api as lm_api
+
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        frames = rng.standard_normal((batch, lm_api.AUDIO_ENC_FRAMES, cfg.d_model))
+        return torch.from_numpy(frames).to(device, dtype)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (batch, length))).to(device)
+
+
+def decode_vs_forward(cfg, model, prompt, gen: int):
+    """Greedy prefill + gen - 1 decode steps against one no-cache forward
+    over the same tokens (phase 11's check; the audio family starts from
+    token 0 and its forward is ``encode`` + ``decode_train``): (max
+    |decode - forward| / max |forward| at the decoded positions, every
+    logit finite)."""
+    import torch
+
+    from repro_torch.models import api as lm_api, whisper
+
+    B, audio = prompt.shape[0], cfg.family == "audio"
+    start = 0 if audio else prompt.shape[1]
+    dtype = model["tok_embed" if audio else "embed"].dtype
+    cache = lm_api.init_cache(cfg, B, start + gen, dtype, prompt.device)
+    logits, cache = lm_api.prefill(cfg, model, prompt, cache)
+    pick = lambda lg: lg[:, -1].argmax(dim=-1, keepdim=True)
+    tok = torch.zeros((B, 1), dtype=torch.long, device=prompt.device) if audio else pick(logits)
+    dec, toks = ([] if audio else [logits[:, 0]]), [tok]
+    for i in range(gen - 1):
+        logits, cache = lm_api.decode_step(cfg, model, cache, tok, start + i)
+        tok = pick(logits)
+        dec.append(logits[:, 0])
+        toks.append(tok)
+    inp = torch.cat(toks[:-1], dim=1)
+    if audio:
+        enc = whisper.encode(cfg, model, prompt, remat=False)
+        full = whisper.decode_train(cfg, model, inp, enc, remat=False)
+    else:
+        full = lm_api.forward(cfg, model, torch.cat([prompt, inp], dim=1), remat=False)
+        full = full[:, start - 1:]
+    dec = torch.stack(dec, dim=1)
+    rel = float((dec - full).abs().max() / full.abs().max())
+    return rel, bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
+
+
+def card_vs_cpu(scfg, dev, batch: int, prompt_len: int, steps: int, zero_counts,
+                read_counts):
+    """``scfg`` on identical seeded fp32 weights on the card and on the CPU:
+    a prefill of ``prompt_len`` tokens (the audio family: stub frames), then
+    ``steps`` teacher-forced decode steps; every step's logits compared.
+    Returns (max |card - CPU|, allclose within LM_CPU_TOL, the launch
+    counts of the card's run, read by ``read_counts()``)."""
     import copy
 
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api as lm_api
+
+    def logits(model, prompt, tokens):
+        start = 0 if scfg.family == "audio" else prompt.shape[1]
+        cache = lm_api.init_cache(scfg, batch, start + steps, torch.float32, prompt.device)
+        out, cache = lm_api.prefill(scfg, model, prompt, cache)
+        outs = [out]
+        for i in range(steps):
+            out, cache = lm_api.decode_step(scfg, model, cache, tokens[:, i:i + 1], start + i)
+            outs.append(out)
+        return torch.cat(outs, dim=1)
+
+    cpu_model = lm_api.init_params(scfg, torch.Generator().manual_seed(0), dtype=torch.float32)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    prompt = family_inputs(scfg, batch, prompt_len, "cpu", torch.float32, seed=1)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, scfg.vocab, (batch, steps)))
+    zero_counts()
+    card = logits(card_model, prompt.to(dev), tokens.to(dev)).cpu()
+    counts = read_counts()
+    cpu = logits(cpu_model, prompt, tokens)
+    return (float((card - cpu).abs().max()),
+            bool(torch.allclose(card, cpu, rtol=LM_CPU_TOL, atol=LM_CPU_TOL)), counts)
+
+
+def lm_families_phase(dev, zero_counts, read_counts, report: dict, smi: str) -> None:
+    """Phase 20: every configuration but LM_ARCH served on the card at its
+    published widths by :func:`family_plan`, held in fp32 against its own
+    forward and at the smoke config against the CPU (the module docstring
+    says what each gate holds). A family that fails is recorded and the
+    next one runs; the phase raises after the last if any failed."""
+    import traceback
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import api as lm_api
+
+    t_phase = time.perf_counter()
+    plan = family_plan()
+    gb = 1e9
+    fmt = lambda cut: ",".join(f"{k}:{a}->{b}" for k, (a, b) in cut.items()) or "none"
+    results, failed = {}, []
+    for arch, fp in plan.items():
+        if arch == LM_ARCH:
+            continue
+        cfg, t_fam = fp["cfg"], time.perf_counter()
+        r = results[arch] = {"config": cfg.name, "layers": cfg.n_layers,
+                             "reduced": fmt(fp["reduced"]), "param_gb": fp["param_bytes"] / gb,
+                             "predicted_peak_gb": fp["peak_bytes"] / gb,
+                             "expected_launches": fp["launches"], "card": smi}
+        model = None
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            model = lm_api.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+            prompt = family_inputs(cfg, FAMILY_BATCH, FAMILY_PROMPT, dev, torch.bfloat16)
+            generate(cfg, model, prompt, 2)   # warm-up
+            torch.cuda.synchronize()
+            r["setup_s"] = time.perf_counter() - t_fam
+            zero_counts()
+            stats = {}
+            tokens = generate(cfg, model, prompt, FAMILY_GEN, stats)
+            counts = read_counts("families")
+            r.update(
+                prefill_s=stats["prefill_s"],
+                decode_ms_per_step=stats["decode_s"] / stats["decode_steps"] * 1e3,
+                peak_gb=(torch.cuda.max_memory_allocated() - base) / gb,
+                prefill_launches=stats["prefill_launches"],
+                decode_launches=stats["decode_launches"], launches=counts,
+                finite=stats["finite"],
+                in_vocab=bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+                shape_ok=tuple(tokens.shape) == (FAMILY_BATCH, FAMILY_GEN))
+            model = None
+            want = fp["launches"]["prefill"] + fp["launches"]["decode"]
+            others = {k: v for k, v in counts.items() if not k.startswith("flash_attention")}
+            r["serve_ok"] = (r["shape_ok"] and r["in_vocab"] and r["finite"]
+                             and (r["prefill_launches"], r["decode_launches"])
+                             == (fp["launches"]["prefill"], fp["launches"]["decode"])
+                             and counts["flash_attention"] == counts["flash_attention:wgmma"]
+                             == want and not any(others.values()))
+
+            # fp32: forward against prefill + decode
+            fcfg = fp["fp32_cfg"]
+            torch.cuda.empty_cache()
+            model = lm_api.init_params(fcfg, torch.Generator(device=dev).manual_seed(0),
+                                       dtype=torch.float32)
+            prompt = family_inputs(fcfg, FAMILY_BATCH, FAMILY_PROMPT, dev, torch.float32)
+            zero_counts()
+            rel, finite = decode_vs_forward(fcfg, model, prompt, fp["fp32_gen"])
+            torch.cuda.synchronize()
+            counts = read_counts("families")
+            model = None
+            r.update(fp32_config=f"{fp['fp32_base']}:{fmt(fp['fp32_reduced'])}",
+                     fp32_max_rel_dev=rel, fp32_finite=finite, fp32_launches=counts,
+                     fp32_ok=finite and rel < LM_CONSISTENCY_TOL
+                     and counts["flash_attention"] == counts["flash_attention:wgmma3"]
+                     == fp["fp32_launches"])
+
+            # the smoke config on identical fp32 weights: card against CPU
+            scfg = get_smoke_config(arch)
+            dev_abs, close, counts = card_vs_cpu(
+                scfg, dev, FAMILY_BATCH, FAMILY_CPU_PROMPT, FAMILY_CPU_STEPS, zero_counts,
+                functools.partial(read_counts, "families"))
+            calls = flash_calls(scfg, FAMILY_CPU_STEPS)
+            r.update(cpu_max_abs_dev=dev_abs, cpu_launches=counts,
+                     cpu_ok=close and counts["flash_attention:wgmma3"]
+                     == counts["flash_attention"] == calls["prefill"] + calls["decode"])
+        except Exception:   # recorded, and raised after the last family
+            r["error"] = traceback.format_exc(limit=6)
+            print(r["error"], file=sys.stderr, flush=True)
+        finally:
+            model = prompt = None
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        r["s"] = time.perf_counter() - t_fam
+        ok = all(r.get(k) for k in ("serve_ok", "fp32_ok", "cpu_ok")) and "error" not in r
+        if not ok:
+            failed.append(arch)
+        num = lambda k, f: f.format(r[k]) if k in r else "not_run"
+        phase("lm_families", arch=cfg.name, layers=cfg.n_layers, reduced=r["reduced"],
+              batch=FAMILY_BATCH, prompt=FAMILY_PROMPT, gen=FAMILY_GEN,
+              param_gb=f"{r['param_gb']:.2f}", peak_gb=num("peak_gb", "{:.2f}"),
+              predicted_peak_gb=f"{r['predicted_peak_gb']:.2f}",
+              prefill_s=num("prefill_s", "{:.4f}"),
+              decode_ms_per_step=num("decode_ms_per_step", "{:.3f}"),
+              launches=f"{r.get('prefill_launches')}/{r.get('decode_launches')}",
+              expected=f"{fp['launches']['prefill']}/{fp['launches']['decode']}",
+              wgmma=r.get("launches", {}).get("flash_attention:wgmma"),
+              finite=r.get("finite"), in_vocab=r.get("in_vocab"),
+              fp32=r.get("fp32_config"), fp32_gen=fp["fp32_gen"],
+              fp32_max_rel_dev=num("fp32_max_rel_dev", "{:.3e}"),
+              fp32_wgmma3=r.get("fp32_launches", {}).get("flash_attention:wgmma3"),
+              cpu_max_abs_dev=num("cpu_max_abs_dev", "{:.3e}"), ok=ok, s=f"{r['s']:.2f}",
+              card=smi.replace(" ", "_"))
+    report["lm_families"] = results
+    phase("lm_families_done", families=len(results), failed=",".join(failed) or "none",
+          phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    if failed:
+        raise AssertionError(f"lm_families: {failed} failed: "
+                             + json.dumps({a: results[a] for a in failed}, default=str))
+
+
+def main() -> int:
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1513,7 +1892,7 @@ def main() -> int:
     path_launches = {name: 0 for name in list(wrappers) + [f"flash_attention:{d}"
                                                            for d in designs]}
     #: the same launches per path: "table4" (phases 4-7), "vt3", "lm" (10-12),
-    #: "serve_cosim" (13), "train" (14-15), "dist" (16)
+    #: "serve_cosim" (13), "train" (14-15), "dist" (16), "families" (20)
     launches_by_path = {name: {} for name in path_launches}
 
     def zero_counts():
@@ -2321,26 +2700,17 @@ def main() -> int:
                              f"{serve['in_vocab']}, finite logits {serve['finite']}")
 
     # 11. fp32: forward (kernel) against prefill + decode at generated positions
+    del cache
     model.float()
     zero_counts()
-    full = lm_api.forward(cfg, model, torch.cat([prompt, tokens[:, :-1]], dim=1))
-    full = full[:, LM_PROMPT - 1:]
-    cache = lm_api.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, torch.float32, dev)
-    logits, cache = lm_api.prefill(cfg, model, prompt, cache)
-    dec = [logits[:, 0]]
-    for i in range(LM_GEN - 1):
-        logits, cache = lm_api.decode_step(cfg, model, cache, tokens[:, i:i + 1], LM_PROMPT + i)
-        dec.append(logits[:, 0])
-    dec = torch.stack(dec, dim=1)
+    rel, finite = decode_vs_forward(cfg, model, prompt, LM_GEN)
     torch.cuda.synchronize()
     counts = read_counts("lm")
-    rel = float((dec - full).abs().max() / full.abs().max())
-    finite = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
     phase("lm_consistency", dtype="float32", positions=LM_GEN, max_rel_dev=f"{rel:.3e}",
           flash_launches=counts["flash_attention"],
           wgmma3_launches=counts["flash_attention:wgmma3"], finite=finite)
     report["lm_consistency"] = {"max_rel_dev": rel, "launches": counts, "finite": finite}
-    del model, cache, full, dec
+    del model
     if not finite or not rel < LM_CONSISTENCY_TOL \
             or counts["flash_attention:wgmma3"] != 2 * cfg.n_layers:
         raise AssertionError(f"lm_consistency: relative deviation {rel}, finite {finite}, "
@@ -2348,18 +2718,8 @@ def main() -> int:
 
     # 12. the smoke config on identical fp32 weights: card against CPU --------
     scfg = get_smoke_config(LM_ARCH)
-    cpu_model = lm_api.init_params(scfg, torch.Generator().manual_seed(0), dtype=torch.float32)
-    card_model = copy.deepcopy(cpu_model).to(dev)
-    sprompt = torch.from_numpy(np.random.default_rng(1).integers(0, scfg.vocab, (LM_BATCH, 96)))
-    zero_counts()
-    card, _ = lm_api.prefill(scfg, card_model, sprompt.to(dev),
-                             lm_api.init_cache(scfg, LM_BATCH, 96, torch.float32, dev))
-    torch.cuda.synchronize()
-    counts = read_counts("lm")
-    cpu, _ = lm_api.prefill(scfg, cpu_model, sprompt,
-                            lm_api.init_cache(scfg, LM_BATCH, 96, torch.float32, "cpu"))
-    dev_abs = float((card.cpu() - cpu).abs().max())
-    close = bool(torch.allclose(card.cpu(), cpu, rtol=LM_CPU_TOL, atol=LM_CPU_TOL))
+    dev_abs, close, counts = card_vs_cpu(scfg, dev, LM_BATCH, 96, 0, zero_counts,
+                                         functools.partial(read_counts, "lm"))
     phase("lm_cpu_parity", arch=scfg.name, prompt=96, max_abs_dev=f"{dev_abs:.3e}",
           allclose=close, flash_launches=counts["flash_attention"])
     report["lm_cpu_parity"] = {"max_abs_dev": dev_abs, "allclose": close, "launches": counts}
@@ -2379,6 +2739,8 @@ def main() -> int:
     gloo_phase(report, out_dir)
     # 19. the memory that recomputing in backward saves (no kernel runs)
     remat_memory_phase(dev, zero_counts, read_counts, report, smi)
+    # 20. every other configuration served at its published widths
+    lm_families_phase(dev, zero_counts, read_counts, report, smi)
 
     # the kernel line, one entry per CUDA source and per design of
     # flash_attention (bf16 and fp32, both from flash_attention_sm90.cu): the

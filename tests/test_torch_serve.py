@@ -8,7 +8,9 @@ packages' logits agree within 1e-4 (``tests/test_torch_models.py``), far
 inside the gap between the top two logits, which the test checks so that a
 near-tie cannot flip an id. Seeded weights give nearly flat logits (gaps
 of 1e-5 over 256 tokens), so both packages get the same final norm scaled
-by ``SHARPEN``: the logits scale with it, and so do the gaps.
+by ``SHARPEN``: the logits scale with it, and so do the gaps. The audio
+family's loop encodes frames in prefill and starts from token 0, as
+``serve_llm`` does there.
 """
 import jax
 import jax.numpy as jnp
@@ -16,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_smoke_config
+from repro.configs import ARCH_IDS, get_smoke_config
 from repro.models import api as japi
 from repro_torch.configs import get_smoke_config as tsmoke
 from repro_torch.launch import serve
@@ -27,11 +29,15 @@ SHARPEN = 64.0
 
 
 def _reference_generate(cfg, params, prompt, gen):
-    """serve_llm's loop: prefill, argmax, then gen - 1 decode steps; also
-    the smallest top-1 vs top-2 logit gap met on the way."""
-    B, P = prompt.shape
-    cache = japi.init_cache(cfg, B, P + gen, dtype=jnp.float32)
-    logits, cache = japi.prefill(cfg, params, jnp.asarray(prompt, jnp.int32), cache)
+    """serve_llm's loop: prefill, argmax (token 0 for the audio family,
+    whose prompt is frames), then gen - 1 decode steps; also the smallest
+    top-1 vs top-2 logit gap met on the way."""
+    audio = cfg.family == "audio"
+    B = prompt.shape[0]
+    start = 0 if audio else prompt.shape[1]
+    cache = japi.init_cache(cfg, B, start + gen, dtype=jnp.float32)
+    inp = jnp.asarray(prompt, jnp.float32 if audio else jnp.int32)
+    logits, cache = japi.prefill(cfg, params, inp, cache)
     gaps = []
 
     def pick(lg):
@@ -39,23 +45,28 @@ def _reference_generate(cfg, params, prompt, gen):
         gaps.append(float((top2[:, 1] - top2[:, 0]).min()))
         return jnp.argmax(lg[:, -1], axis=-1)[:, None].astype(jnp.int32)
 
-    tok = pick(logits)
+    tok = jnp.zeros((B, 1), jnp.int32) if audio else pick(logits)
     outs = [tok]
     for i in range(gen - 1):
-        logits, cache = japi.decode_step(cfg, params, cache, tok, P + i)
+        logits, cache = japi.decode_step(cfg, params, cache, tok, start + i)
         tok = pick(logits)
         outs.append(tok)
     return np.concatenate([np.asarray(t) for t in outs], axis=1), min(gaps)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "smollm_360m"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_generate_matches_reference_loop(arch):
     cfg = get_smoke_config(arch)
     params = japi.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
-    params["final_norm"] = params["final_norm"] * SHARPEN
+    norm = "dec_norm" if cfg.family == "audio" else "final_norm"
+    params[norm] = params[norm] * SHARPEN
     model = tapi.params_from_numpy(tsmoke(arch), jax.tree_util.tree_map(np.asarray, params),
                                    device="cpu")
-    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (3, 9))
+    rng = np.random.default_rng(0)
+    if cfg.family == "audio":
+        prompt = rng.standard_normal((3, japi.AUDIO_ENC_FRAMES, cfg.d_model)).astype(np.float32)
+    else:
+        prompt = rng.integers(0, cfg.vocab, (3, 9))
     want, gap = _reference_generate(cfg, params, prompt, GEN)
     assert gap > 1e-3, f"near-tie ({gap}) at this seed: pick another"
     stats = {}
