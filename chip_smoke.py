@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's main path once on one GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --stream-mesh    # phase 21 alone, on every card
 
 Run from the repository root on a host with one CUDA card (it exits non-zero
 without one). Phases, one line each:
@@ -250,14 +251,32 @@ without one). Phases, one line each:
              fp32 weights on the card and on the CPU: prefill and 3 decode
              steps' logits within rtol = atol = 1e-4. One line per family,
              with the card's name and power limit.
+21. stream_mesh
+             the ILA stream mesh (``core/ila.py::set_stream_mesh``): the
+             simulators' batch axis split over every card when the host has
+             more than one, else over a two-way mesh of the one card
+             repeated (``cards``, ``mesh`` on each line). Mesh off, then on,
+             each on a fresh Executor or server: the Table-4 ResMLP row on
+             FlexASR (phase 4's program and parameters) on the compiled,
+             pipelined and fused engines, the ResNet-20 fused-16 column
+             (phase 5's), 40 points each, and the serve launcher's default
+             co-sim load on ResMLP (phase 13's program, 16 requests x batch
+             4, pipelined); s/point and requests/s on and off, with the
+             card's name and power limit. Gates: outputs bit-identical on
+             against off, engine by engine, and request by request;
+             accuracies equal; af_gemm and fx_gemm launches of the timed
+             passes equal to the mesh size times the unsharded reckoning
+             (phase 4's: one per fused linear or conv group), counted on
+             path "mesh"; every sharded group's shards on the mesh's
+             devices, in order, where the Executor joins them.
 
 Every count of kernel launches is set to 0 just before a path runs and read
 just after it. Then one JSON line with an entry per kernel and per design of
 flash_attention (``{"kernels": [...]}``; each entry also gives its CUDA
 launches per call, its time above the launch floor and its launches per
 path: "table4" for phases 4-7, "vt3", "lm" for phases 10-12,
-"serve_cosim" for 13, "train" for 14-15, "dist" for 16 and "families" for
-20), the card's
+"serve_cosim" for 13, "train" for 14-15, "dist" for 16, "families" for
+20 and "mesh" for 21), the card's
 nvidia-smi line
 and, last, the result line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -466,8 +485,9 @@ def device_busy(label: str, fn):
 
 
 def cosim_serve_phase(dev, zero_counts, read_counts, launches_by_path: dict,
-                      report: dict) -> None:
-    """Phase 13: CosimServer under the serve launcher's default load."""
+                      report: dict) -> dict:
+    """Phase 13: CosimServer under the serve launcher's default load; returns
+    each application's compiled (program, params)."""
     import numpy as np
     import torch
 
@@ -588,6 +608,7 @@ def cosim_serve_phase(dev, zero_counts, read_counts, launches_by_path: dict,
     if by_path["af_gemm"] <= 0 or by_path["fx_gemm"] <= 0:
         raise AssertionError(f"serve_cosim launched af_gemm {by_path['af_gemm']} and fx_gemm "
                              f"{by_path['fx_gemm']} times; both must run")
+    return compiled
 
 
 @contextlib.contextmanager
@@ -1854,6 +1875,240 @@ def lm_families_phase(dev, zero_counts, read_counts, report: dict, smi: str) -> 
                              + json.dumps({a: results[a] for a in failed}, default=str))
 
 
+@contextlib.contextmanager
+def shard_devices_seen():
+    """The devices of every sharded group's shards, where the Executor joins
+    them (``codegen.to_numpy``), one list per group, in mesh order."""
+    from repro_torch.core import codegen, ila
+
+    seen = []
+    join = codegen.to_numpy
+
+    def recording(v):
+        if isinstance(v, ila.Shards):
+            seen.append([s.device for s in v])
+        return join(v)
+
+    codegen.to_numpy = recording
+    try:
+        yield seen
+    finally:
+        codegen.to_numpy = join
+
+
+def stream_mesh_phase(dev, zero_counts, read_counts, peek_counts, report: dict, smi: str,
+                      resmlp, resnet_prep, served_resmlp, groups: int) -> None:
+    """Phase 21: the ILA stream mesh. Every card when the host has more than
+    one, else a two-way mesh on ``dev`` repeated; each case runs mesh off,
+    then on (a fresh Executor or server each, its outputs read once before
+    its timed pass): the Table-4 ResMLP row on FlexASR (compiled, pipelined,
+    fused; 40 points), the ResNet-20 fused-16 column, and the serve
+    launcher's default co-sim load on ResMLP (pipelined). Gates: outputs
+    bit-identical on against off, accuracies equal, af_gemm / fx_gemm
+    launches of the timed passes on path "mesh" equal to the mesh size
+    times the unsharded reckoning (and the unsharded runs equal to it),
+    every shard on its mesh device."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cosim, ila
+    from repro_torch.core.codegen import Executor
+    from repro_torch.core.serving import CosimServer
+    from repro_torch.launch import table4
+    from repro_torch.launch.serve import drive_load
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", i) for i in range(cards)] if cards > 1 else [dev, dev]
+    kind = "cards" if cards > 1 else "repeated"
+    program, params, X, y = resmlp
+    # unsharded launches a timed pass makes: one af_gemm per fused FlexASR
+    # linear group (7 linears in ResMLP, 1 in ResNet-20), one fx_gemm per
+    # fused HLSCNN conv group (7 convs); a mesh launches each group once per
+    # shard
+    cases = {
+        "resmlp:compiled": (lambda: Executor("ila", engine="compiled", device=dev), {}),
+        "resmlp:pipelined": (lambda: Executor("ila", engine="pipelined", device=dev), {}),
+        "resmlp:fused": (lambda: Executor("ila", engine="fused", device=dev),
+                         {"af_gemm": 7 * groups}),
+        "resnet20:fused-16": (lambda: table4.executor("fused-16", dev),
+                              {"af_gemm": groups, "fx_gemm": 7 * groups}),
+    }
+    rows, failed = {}, []
+    for case, (make, unsharded) in cases.items():
+        app, column = case.split(":")
+        row = {}
+        for on in (False, True):
+            mesh = ila.set_stream_mesh(devices if on else None)
+            ex = make()
+            with shard_devices_seen() as seen:
+                if app == "resmlp":
+                    outs = np.stack([o.reshape(-1) for o in cosim.eval_outputs(
+                        program, params, lambda i: X[i], range(N_EVAL), ex)])
+                    zero_counts()
+                    acc, sec = cosim.eval_classification(program, params, X, y, ex, N_EVAL)
+                else:
+                    outs = table4.logits(resnet_prep, ex, N_EVAL)
+                    zero_counts()
+                    acc, sec = table4.evaluate(resnet_prep, ex, N_EVAL)
+                torch.cuda.synchronize()
+                launched = read_counts("mesh") if on else peek_counts()
+            ila.set_stream_mesh(None)
+            zero_counts()
+            want = {k: n * (len(devices) if on else 1) for k, n in unsharded.items()}
+            row["on" if on else "off"] = {
+                "accuracy": acc, "s_per_point": sec, "outs": outs,
+                "launches": {k: launched[k] for k in ("af_gemm", "fx_gemm")}, "want": want,
+                "sharded_groups": len(seen),
+                "placed": all(d == list(mesh.devices) for d in seen) if on else not seen}
+        off, on_ = row["off"], row["on"]
+        same = bool(np.array_equal(off["outs"], on_["outs"]))
+        ok = (same and off["accuracy"] == on_["accuracy"] and on_["placed"] and off["placed"]
+              and on_["sharded_groups"] > 0 and np.isfinite(on_["outs"]).all()
+              and on_["outs"].shape == (N_EVAL, 10)
+              and all(r["launches"] == {k: r["want"].get(k, 0) for k in ("af_gemm", "fx_gemm")}
+                      for r in (off, on_)))
+        phase("stream_mesh", case=case, cards=cards, mesh=kind, size=len(devices),
+              points=N_EVAL, acc_off=f"{off['accuracy']:.3f}", acc_on=f"{on_['accuracy']:.3f}",
+              s_per_pt_off=f"{off['s_per_point']:.7f}", s_per_pt_on=f"{on_['s_per_point']:.7f}",
+              launches_off="/".join(str(v) for v in off["launches"].values()),
+              launches_on="/".join(str(v) for v in on_["launches"].values()),
+              sharded_groups=on_["sharded_groups"], placed=on_["placed"],
+              bit_identical=same, ok=ok, card=smi.replace(" ", "_"))
+        rows[case] = {k: {kk: vv for kk, vv in v.items() if kk != "outs"}
+                      for k, v in row.items()}
+        rows[case]["bit_identical"] = same
+        if not ok:
+            failed.append(case)
+
+    # the serve launcher's default co-sim load on ResMLP, mesh off then on
+    served = {}
+    for on in (False, True):
+        mesh = ila.set_stream_mesh(devices if on else None)
+        t0 = time.perf_counter()
+        server = CosimServer(engine="pipelined", device=dev, queue_depth=SERVE_QUEUE_DEPTH,
+                             max_batch=SERVE_MAX_BATCH,
+                             pipeline_chunk=max(1, min(8, -(-SERVE_BATCH // 2))))
+        server.add_program("resmlp", *served_resmlp)
+        server.start(warmup=1, warm_batch=SERVE_BATCH)
+        torch.cuda.synchronize()
+        start_s = time.perf_counter() - t0
+        zero_counts()
+        with shard_devices_seen() as seen:
+            handles, load_s = drive_load(server, "resmlp", SERVE_REQUESTS, SERVE_BATCH,
+                                         SERVE_CONCURRENCY)
+            server.close(drain=True)
+        launched = read_counts("mesh") if on else peek_counts()
+        ila.set_stream_mesh(None)
+        zero_counts()
+        done = [h for h in handles if h.status == "done"]
+        served["on" if on else "off"] = {
+            "outs": {h.id: h.result() for h in done}, "served": len(done),
+            "qps": len(done) / load_s, "load_s": load_s, "start_s": start_s,
+            "coalesced_max": server.summary()["coalesced_max"],
+            "launches": {k: launched[k] for k in ("af_gemm", "fx_gemm")},
+            "sharded_groups": len(seen),
+            "placed": all(d == list(mesh.devices) for d in seen) if on else not seen}
+    off, on_ = served["off"], served["on"]
+    same = sorted(off["outs"]) == sorted(on_["outs"]) and all(
+        len(off["outs"][r]) == len(on_["outs"][r])
+        and all(np.array_equal(a, b) for a, b in zip(off["outs"][r], on_["outs"][r]))
+        for r in off["outs"])
+    ok = (same and off["served"] == on_["served"] == SERVE_REQUESTS and on_["placed"]
+          and off["placed"] and on_["sharded_groups"] > 0
+          and not any(off["launches"].values()) and not any(on_["launches"].values()))
+    phase("stream_mesh", case="serve:resmlp:pipelined", cards=cards, mesh=kind,
+          size=len(devices), requests=SERVE_REQUESTS, batch=SERVE_BATCH,
+          served=f"{off['served']}/{on_['served']}", qps_off=f"{off['qps']:.3f}",
+          qps_on=f"{on_['qps']:.3f}", load_s_off=f"{off['load_s']:.3f}",
+          load_s_on=f"{on_['load_s']:.3f}", coalesced_max=f"{off['coalesced_max']}/"
+          f"{on_['coalesced_max']}", sharded_groups=on_["sharded_groups"],
+          placed=on_["placed"], bit_identical=same, ok=ok, card=smi.replace(" ", "_"))
+    rows["serve:resmlp:pipelined"] = {k: {kk: vv for kk, vv in v.items() if kk != "outs"}
+                                      for k, v in served.items()}
+    rows["serve:resmlp:pipelined"]["bit_identical"] = same
+    if not ok:
+        failed.append("serve:resmlp:pipelined")
+    report["stream_mesh"] = {"cards": cards, "mesh": kind, "devices": [str(d) for d in devices],
+                             "rows": rows, "card": smi,
+                             "phase_s": time.perf_counter() - t_phase}
+    phase("stream_mesh_done", cards=cards, mesh=kind, size=len(devices),
+          failed=",".join(failed) or "none", phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    if failed:
+        raise AssertionError(f"stream_mesh: {failed} failed: "
+                             + json.dumps({c: rows[c] for c in failed}, default=str))
+
+
+def stream_mesh_only() -> int:
+    """``--stream-mesh``: phase 21 alone, over every card of the host (the
+    two-way repeated mesh on a one-card host), after the set-up it needs:
+    af_gemm and fx_gemm built, the ResMLP and ResNet-20 rows trained as
+    phases 4 and 5 train them, the served ResMLP compiled as phase 13 does.
+    Prints the phase's lines, the nvidia-smi line and the result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch import device as devmod
+    from repro_torch.core import apps, cosim
+    from repro_torch.core.codegen import Executor
+    from repro_torch.core.compile import compile_program
+    from repro_torch.core.serving import CosimServer
+    from repro_torch.kernels import build
+    from repro_torch.kernels.af_gemm import af_gemm
+    from repro_torch.kernels.fx_gemm import fx_gemm
+    from repro_torch.launch import table4
+
+    dev = devmod.resolve("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    phase("build", **{k: f"{v:.1f}s" for k, v in build.build(["af_gemm", "fx_gemm"]).items()})
+    wrappers = {"af_gemm": af_gemm, "fx_gemm": fx_gemm}
+    by_path = {}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def peek_counts():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def read_counts(path):
+        counts = peek_counts()
+        for name, n in counts.items():
+            by_path.setdefault(name, {}).setdefault(path, 0)
+            by_path[name][path] += n
+        return counts
+
+    builder = lambda seed=0: apps.build_resmlp(seed=seed, layers=2)
+    expr, params = builder()
+    X, y = cosim.make_teacher_task(builder, (16, 64), n=512, device=dev)
+    trained = cosim.train_app(expr, params, X, y, steps=TRAIN_STEPS, lr=3e-3, device=dev)
+    res = compile_program(expr, targets=("flexasr",), flexible=True)
+    resnet_prep = table4.prepare(table4.APPS["resnet20"], dev, TRAIN_STEPS)
+    served = CosimServer(device=dev).add_app("resmlp")
+    fused = Executor("ila", engine="fused", device=dev)
+    batch = cosim._pipeline_batch(fused, 16)
+    groups = sum(-(-min(batch, N_EVAL - i) // fused.pipeline_chunk)
+                 for i in range(0, N_EVAL, batch))
+    report = {}
+    stream_mesh_phase(dev, zero_counts, read_counts, peek_counts, report, smi[0],
+                      (res.program, trained, X, y), resnet_prep,
+                      (served.program, served.params), groups)
+    report["launches_by_path"] = by_path
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_stream_mesh.json").write_text(json.dumps(report, indent=1,
+                                                                    default=str))
+    print("\n".join(smi))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1892,13 +2147,18 @@ def main() -> int:
     path_launches = {name: 0 for name in list(wrappers) + [f"flash_attention:{d}"
                                                            for d in designs]}
     #: the same launches per path: "table4" (phases 4-7), "vt3", "lm" (10-12),
-    #: "serve_cosim" (13), "train" (14-15), "dist" (16), "families" (20)
+    #: "serve_cosim" (13), "train" (14-15), "dist" (16), "families" (20),
+    #: "mesh" (21)
     launches_by_path = {name: {} for name in path_launches}
 
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
         kfa.reset_launches()
+
+    def peek_counts():
+        """The counts as they stand, added to no path (a check's launches)."""
+        return {name: w.launches for name, w in wrappers.items()}
 
     def read_counts(path="table4"):
         counts = {name: w.launches for name, w in wrappers.items()}
@@ -2727,7 +2987,7 @@ def main() -> int:
         raise AssertionError(f"lm_cpu_parity: card vs CPU {dev_abs}, launches {counts}")
 
     # 13-15. co-simulation serving, LM training, the fault-tolerant trainer
-    cosim_serve_phase(dev, zero_counts, read_counts, launches_by_path, report)
+    served_apps = cosim_serve_phase(dev, zero_counts, read_counts, launches_by_path, report)
     lm_train_phase(dev, zero_counts, read_counts, report, get_config(LM_ARCH),
                    get_smoke_config(LM_ARCH))
     trainer_phase(dev, zero_counts, read_counts, report, out_dir)
@@ -2741,6 +3001,9 @@ def main() -> int:
     remat_memory_phase(dev, zero_counts, read_counts, report, smi)
     # 20. every other configuration served at its published widths
     lm_families_phase(dev, zero_counts, read_counts, report, smi)
+    # 21. the ILA stream mesh: the simulators' batch axis split over devices
+    stream_mesh_phase(dev, zero_counts, read_counts, peek_counts, report, smi,
+                      (res.program, trained, X, y), resnet_prep, served_apps["resmlp"], groups)
 
     # the kernel line, one entry per CUDA source and per design of
     # flash_attention (bf16 and fp32, both from flash_attention_sm90.cu): the
@@ -2796,4 +3059,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(stream_mesh_only() if sys.argv[1:] == ["--stream-mesh"] else main())

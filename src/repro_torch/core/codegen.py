@@ -73,7 +73,10 @@ results — all engines stay bit-exact for any device count.
 
 Every Executor runs on one torch ``device`` (``None`` -> CUDA; a host
 without CUDA raises). Host glue ops evaluate there with the IR interpreter;
-planners pack on the host; simulation and kernels run on the device.
+planners pack on the host; simulation and kernels run on the device. Under
+a stream mesh (:func:`repro_torch.core.ila.set_stream_mesh`) a batched
+group's simulation or fused runner runs shard by shard on the mesh's
+devices instead, and its result is joined on the host at readback.
 
 Per-invocation statistics (op, rel-error vs ideal, value ranges, predicted
 cost) are collected — the "handy debugging information" the paper's authors
@@ -99,7 +102,9 @@ from ..accel.target import (  # importing registers bundled targets
 )
 from ..device import DeviceLike, resolve
 from . import ir
-from .ila import TARGETS, CompiledFragment, FragmentCache
+from .ila import (
+    TARGETS, CompiledFragment, FragmentCache, FusedRunner, Shards, stream_mesh,
+)
 from .telemetry import TELEMETRY, MetricsRegistry
 
 ENGINES = ("compiled", "pipelined", "fused", "jit", "eager")
@@ -120,7 +125,10 @@ def _pack_pool() -> ThreadPoolExecutor:
 
 
 def to_numpy(v) -> np.ndarray:
-    """A result as a host array (device tensors are copied back)."""
+    """A result as a host array (device tensors are copied back). A
+    sharded result's shards meet here, concatenated in mesh order."""
+    if isinstance(v, Shards):
+        return np.concatenate([to_numpy(s) for s in v])
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return np.asarray(v)
@@ -776,13 +784,17 @@ class Executor:
         :class:`~repro_torch.core.ila.FusedRunner` for the signature, and only
         when the runner fuses the group's read function (runners bake the
         read-out into the kernel; a planner using a different read falls
-        back to the oracle path)."""
+        back to the oracle path). With a stream mesh, the runner is one
+        runner per mesh device, sharded (:meth:`FusedRunner.sharded`)."""
         if self.engine != "fused" or target is None:
             return None
-        runner = target.fused_runner(frag, self.device)
+        mesh = stream_mesh()
+        runners = [target.fused_runner(frag, d)
+                   for d in (mesh.devices if mesh is not None else (self.device,))]
+        runner = runners[0]
         if runner is None or (runner.read is not None and runner.read is not read):
             return None
-        return runner
+        return FusedRunner.sharded(runners) if mesh is not None else runner
 
     @staticmethod
     def _group_jobs(jobs: List[SimJob]) -> Dict[Tuple, List[int]]:
@@ -919,8 +931,11 @@ class Executor:
                     fulls = runner.dispatch(prepared[1])
                 else:
                     # reads are batch-polymorphic: one read of the
-                    # batched state yields every stream's region
-                    fulls = read(frag.run_prepared(prepared, self.device))
+                    # batched state (of each shard's, on a stream mesh)
+                    # yields every stream's region
+                    out = frag.run_prepared(prepared, self.device)
+                    fulls = (Shards(read(s) for s in out) if isinstance(out, Shards)
+                             else read(out))
                 group = _GroupResult(fulls)
                 for bi, i in enumerate(idxs):
                     handles[i] = (

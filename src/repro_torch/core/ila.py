@@ -55,6 +55,12 @@ The batched tiers are split into a **host half** (pure numpy: padding,
 stacking, shared-payload detection — safe in a pack worker thread) and a
 **dispatch half** (the device work, which CUDA runs asynchronously), which
 the Executor's pipelined engine overlaps.
+
+With a **stream mesh** (:func:`set_stream_mesh`) the batched tiers split the
+padded batch axis into equal contiguous shards, one per mesh device; each
+shard runs on its own device from that device's copy of the setup state,
+and the result is a :class:`Shards` list that the Executor joins on the
+host, in mesh order, where it reads the group back.
 """
 from __future__ import annotations
 
@@ -115,15 +121,108 @@ def batch_bucket(n: int) -> int:
 
 
 # --------------------------------------------------------------------------
-# Stream mesh: the one-device case
+# Stream mesh: shard the stacked batch axis over several devices
 # --------------------------------------------------------------------------
 
 
-def set_stream_mesh(spec: Any = "auto") -> None:
-    """Batch-axis sharding over several devices is not ported: the port
-    runs one device, so this always reports no mesh (``None``), as the
-    reference does on a single-device host."""
-    return None
+@dataclasses.dataclass(frozen=True)
+class StreamMesh:
+    """The devices a batched simulation splits its batch axis over, in
+    shard order: the counterpart of the reference's 1-D
+    ``Mesh(devices, ("stream",))``."""
+
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def __str__(self) -> str:
+        return f"StreamMesh({', '.join(str(d) for d in self.devices)})"
+
+
+#: process-wide mesh over which batched simulation shards its stream axis
+#: (None = single-device dispatch, the default)
+_STREAM_MESH: Optional[StreamMesh] = None
+
+
+def set_stream_mesh(spec: Any = "auto") -> Optional[StreamMesh]:
+    """Configure batch-axis sharding for ``simulate_batch``/``run_data_batch``,
+    the Executor's batched groups and the fused runners.
+
+    ``spec`` is ``None``/``"off"`` (disable), ``"auto"`` (every card,
+    ``torch.cuda.device_count()``), an int N (the first N cards; more than
+    the host has raises), a :class:`StreamMesh`, or a sequence of devices.
+    Returns the active mesh, or None when fewer than two devices result
+    (sharding would be a no-op, so it is disabled rather than building a
+    trivial mesh): on a host without a card ``"auto"`` is None, never a CPU
+    mesh.
+
+    A sequence may repeat a device (``["cpu"] * 4``, ``["cuda:0"] * 2``):
+    every shard then runs on that device, one after the other. This is the
+    counterpart of the reference's
+    ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` virtual devices,
+    and how the sharded path runs on a CPU or on a one-card host.
+    """
+    global _STREAM_MESH
+    if spec is None or (isinstance(spec, str) and spec == "off"):
+        devs: Tuple[torch.device, ...] = ()
+    elif isinstance(spec, StreamMesh):
+        devs = spec.devices
+    elif isinstance(spec, (str, int)):
+        have = torch.cuda.device_count()
+        n = have if spec == "auto" else int(spec)
+        if n >= 2 and n > have:
+            raise ValueError(f"a stream mesh of {n} cards asked for on a host with {have}")
+        devs = tuple(resolve(f"cuda:{i}") for i in range(n)) if n >= 2 else ()
+    else:
+        devs = tuple(resolve(d) for d in spec)
+    _STREAM_MESH = StreamMesh(devs) if len(devs) >= 2 else None
+    return _STREAM_MESH
+
+
+def stream_mesh() -> Optional[StreamMesh]:
+    return _STREAM_MESH
+
+
+def mesh_pad(n: int) -> int:
+    """Round a padded batch size up to a multiple of the stream mesh size
+    (identity without a mesh), so the shards are equal."""
+    if _STREAM_MESH is None:
+        return n
+    m = _STREAM_MESH.size
+    return -(-n // m) * m
+
+
+def _shard_batched(x) -> list:
+    """The stream mesh's shards of a batch-leading array: equal contiguous
+    slices of axis 0, one per mesh device, in mesh order. The shards of a
+    host array stay on the host: each consumer copies its shard to its own
+    device."""
+    m = _STREAM_MESH.size
+    B = int(x.shape[0])
+    assert B % m == 0, f"a batch of {B} does not split over {m} mesh devices (mesh_pad)"
+    s = B // m
+    return [x[i * s : (i + 1) * s] for i in range(m)]
+
+
+def _replicated(state) -> List[State]:
+    """An unbatched state on every mesh device, in mesh order. A list (one
+    state per device, as :class:`CompiledFragment` memoises its setup
+    state) passes through; a single state is copied to each device."""
+    if isinstance(state, list):
+        assert len(state) == _STREAM_MESH.size
+        return state
+    return [
+        {k: (v.to(d) if isinstance(v, torch.Tensor) else v) for k, v in state.items()}
+        for d in _STREAM_MESH.devices
+    ]
+
+
+class Shards(list):
+    """A sharded group's result: one value per mesh device, in mesh order,
+    each on its own device. The shards meet once, on the host, where the
+    Executor reads a group back (``codegen.to_numpy``)."""
 
 
 # --------------------------------------------------------------------------
@@ -580,12 +679,13 @@ class ILA:
 
     def _host_stream_batch(self, streams: Sequence[PackedStream]):
         """Host half of :meth:`simulate_batch`: NOP-pad to the common length
-        bucket, bucket the batch dim (replaying the last stream) and stack
-        to dense arrays. Pure numpy — safe in a pack worker thread."""
+        bucket, bucket the batch dim (replaying the last stream; a multiple
+        of the stream mesh size when one is active) and stack to dense
+        arrays. Pure numpy — safe in a pack worker thread."""
         assert streams, "simulate_batch needs at least one stream"
         L = bucket_length(max(len(s) for s in streams))
         B = len(streams)
-        Bp = batch_bucket(B)
+        Bp = mesh_pad(batch_bucket(B))
         padded = [s.padded(L) for s in streams]
         padded += [padded[-1]] * (Bp - B)
         ops = np.stack([s.ops for s in padded])
@@ -594,11 +694,20 @@ class ILA:
         return ops, addrs, data
 
     def _dispatch_stream_batch(self, host, state: State) -> State:
-        """Dispatch half: step through the stacked streams. A step whose
-        opcode, address or payload is the same for every stream is applied
-        once with host values; one that differs is applied per stream (a
-        per-stream opcode runs each decoded instruction on its own copy of
-        the state and keeps the rows that issued it)."""
+        """Dispatch half. With a stream mesh, each shard of the batch steps
+        on its own mesh device from its copy of ``state`` (the result is
+        the :class:`Shards`); the host loop then runs once per shard."""
+        if _STREAM_MESH is None:
+            return self._step_streams(host, state)
+        parts = zip(*(_shard_batched(a) for a in host))
+        return Shards(self._step_streams(h, st) for h, st in zip(parts, _replicated(state)))
+
+    def _step_streams(self, host, state: State) -> State:
+        """Step through the stacked streams. A step whose opcode, address or
+        payload is the same for every stream is applied once with host
+        values; one that differs is applied per stream (a per-stream opcode
+        runs each decoded instruction on its own copy of the state and
+        keeps the rows that issued it)."""
         ops, addrs, data = host
         Bp, L = ops.shape
         st = self.own(state)
@@ -716,13 +825,14 @@ class ILA:
 
     def _host_data_batch(self, datas: Sequence[DataStream]):
         """Host half of :meth:`run_data_batch`: signature check, batch
-        bucketing, shared-payload detection and payload stacking. Pure
-        numpy — safe in a pack worker thread."""
+        bucketing (a multiple of the stream mesh size when one is active),
+        shared-payload detection over the whole padded batch and payload
+        stacking. Pure numpy — safe in a pack worker thread."""
         assert datas, "run_data_batch needs at least one stream"
         sig = datas[0].sig()
         assert all(d.sig() == sig for d in datas), "mixed signatures in one batch"
         B = len(datas)
-        Bp = batch_bucket(B)
+        Bp = mesh_pad(batch_bucket(B))
         datas = list(datas) + [datas[-1]] * (Bp - B)
         tail0 = datas[0].tail.data
         shared_mask = tuple(
@@ -740,12 +850,22 @@ class ILA:
 
     def _dispatch_data_batch(self, host, state: State) -> State:
         """Dispatch half: runner lookup + the device work (host-to-device
-        copies of the batched payloads, then the unrolled stream)."""
+        copies of the batched payloads, then the unrolled stream). With a
+        stream mesh, every shard takes the whole batch's runner (one shared
+        mask) and runs on its own mesh device from its copy of ``state``;
+        the result is the :class:`Shards`."""
         sig, shared_mask, rows_list, shared, batched = host
         _, batch = self._data_runner(sig, shared_mask)
-        dev = _device_of(state)
-        return batch(
-            state, [payload(r, dev) for r in rows_list], shared, payload(batched, dev),
+        if _STREAM_MESH is None:
+            dev = _device_of(state)
+            return batch(
+                state, [payload(r, dev) for r in rows_list], shared, payload(batched, dev),
+            )
+        rows = [_shard_batched(r) for r in rows_list]
+        return Shards(
+            batch(st, [payload(r[i], dev) for r in rows], shared, payload(b, dev))
+            for i, (dev, st, b) in enumerate(zip(
+                _STREAM_MESH.devices, _replicated(state), _shard_batched(batched)))
         )
 
     def run_data_batch(
@@ -841,9 +961,13 @@ class CompiledFragment:
 
     def run_prepared(self, prepared, device: DeviceLike = None) -> State:
         """Dispatch half of :meth:`run_batch`: resolve the setup state and
-        issue the batched simulation for a prepared batch."""
+        issue the batched simulation for a prepared batch. With a stream
+        mesh the setup state is the one memoised on each mesh device (the
+        replication), and the result is the :class:`Shards`."""
         kind, host = prepared
-        st = self.setup_state(device)
+        mesh = _STREAM_MESH
+        st = (self.setup_state(device) if mesh is None
+              else [self.setup_state(d) for d in mesh.devices])
         if kind == "data":
             return self.ila._dispatch_data_batch(host, st)
         return self.ila._dispatch_stream_batch(host, st)
@@ -913,10 +1037,11 @@ class FragmentCache:
 
 def fused_pad_streams(datas: Sequence["DataStream"]) -> List["DataStream"]:
     """Pad a fused batch exactly like :meth:`ILA._host_data_batch` pads the
-    compiled tier's (bucket per the active batch ladder, replaying the last
-    stream), keeping ``[b]`` handle indexing aligned."""
+    compiled tier's (bucket per the active batch ladder, times the stream
+    mesh size, replaying the last stream), keeping ``[b]`` handle indexing
+    aligned."""
     B = len(datas)
-    Bp = batch_bucket(B)
+    Bp = mesh_pad(batch_bucket(B))
     return list(datas) + [datas[-1]] * (Bp - B)
 
 
@@ -952,6 +1077,21 @@ class FusedRunner:
 
     def run(self, datas: Sequence["DataStream"]) -> torch.Tensor:
         return self.dispatch(self.prepare(datas))
+
+    @staticmethod
+    def sharded(runners: Sequence["FusedRunner"]) -> "FusedRunner":
+        """One runner over the stream mesh from one runner per mesh device
+        (each holds its weights and masks on its own device): the prepared
+        batch-leading arrays split into the mesh's shards, each shard goes
+        to its device's runner, and the result is the :class:`Shards`."""
+        first = runners[0]
+
+        def dispatch(prepared):
+            parts = zip(*(_shard_batched(a) for a in prepared))
+            return Shards(r.dispatch(p) for r, p in zip(runners, parts))
+
+        return FusedRunner(first.name, first.prepare, dispatch,
+                           read=first.read, lowering=first.lowering)
 
 
 # --------------------------------------------------------------------------

@@ -3,12 +3,15 @@ dispatch thread in front of a persistent Executor.
 
 Port of ``repro/core/serving.py``. What the port adds, for a card:
 
-* **One device and one stream.** The dispatch thread is not the thread that
-  built the Executor, and the current CUDA device and stream are per thread.
-  The server records the Executor's device and the constructing thread's
-  current stream on it, and the dispatch thread makes both its own before
-  it serves (``_loop``), so every launch lands where the kernels' wrappers
-  look (``torch.cuda.current_stream(device)``). Only the dispatch thread
+* **One device and one stream per device.** The dispatch thread is not the
+  thread that built the Executor, and the current CUDA device and stream
+  are per thread. The server records the Executor's device and the
+  constructing thread's current stream on it, and on every device of the
+  stream mesh (``ila.set_stream_mesh``) when one is set, and the dispatch
+  thread makes them its own before it serves (``_loop``), so every launch
+  lands where the kernels' wrappers look
+  (``torch.cuda.current_stream(device)``) and each shard is computed and
+  read back on one stream of its own device. Only the dispatch thread
   calls a kernel wrapper while the server runs (the wrappers' launch
   counters are plain integers); the pack worker packs on the host.
 * **Outputs are numpy arrays**, as the reference's are: a request's outputs
@@ -237,10 +240,12 @@ class CosimServer:
             "ila", engine=engine, devices_per_target=devices_per_target,
             pipeline_chunk=pipeline_chunk, device=device,
         )
-        dev = self.executor.device
-        #: the stream the dispatch thread launches on: the constructing
-        #: thread's current stream on the Executor's device
-        self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        mesh = ila.stream_mesh()
+        devices = dict.fromkeys((self.executor.device, *(mesh.devices if mesh else ())))
+        #: the streams the dispatch thread launches on: the constructing
+        #: thread's current stream on the Executor's device and on every
+        #: stream-mesh device
+        self._streams = [torch.cuda.current_stream(d) for d in devices if d.type == "cuda"]
         self.queue_depth = int(queue_depth)
         self.max_batch = max(1, int(max_batch))
         self.coalesce = bool(coalesce)
@@ -445,10 +450,12 @@ class CosimServer:
         return group
 
     def _loop(self) -> None:
-        if self._stream is not None:
-            # this thread's current device and stream: the Executor's
+        # this thread's current streams, then its current device: the
+        # Executor's (setting a stream also makes its device current)
+        for stream in self._streams:
+            torch.cuda.set_stream(stream)
+        if self.executor.device.type == "cuda":
             torch.cuda.set_device(self.executor.device)
-            torch.cuda.set_stream(self._stream)
         inflight: "deque[Tuple[Any, List[RequestHandle]]]" = deque()
         while True:
             # only block for arrivals when nothing is in flight: with work

@@ -14,7 +14,7 @@ the kernels' plain versions (use ``--smoke`` there).
 Co-sim serving (``serve_cosim``):
 
     python -m repro_torch.launch.serve --cosim resmlp --devices-per-target 2 \
-        [--requests 16] [--batch 2] [--engine pipelined] [--warmup 1] \
+        [--requests 16] [--batch 2] [--engine pipelined] [--mesh auto] [--warmup 1] \
         [--concurrency 4] [--queue-depth 16] [--arrival poisson:8] \
         [--max-batch 0] [--no-coalesce] [--no-overlap] [--device cuda]
 
@@ -36,10 +36,11 @@ requests/second (default ``asap``: back-to-back). The run reports
 sustained QPS, p50/p95/p99 request latency, rejections, then the
 per-device utilization, pipeline-stage and cache-health tables. All
 engines serve bit-identical results for a given ``--seed`` (request
-operands derive from ``(seed, request_id)``). The reference's ``--mesh``
-shards the ILA simulators' vmapped batch axis over devices
-(``ila.set_stream_mesh``), not a model: the port's stream mesh is the
-one-device case, so the flag is not ported. Sharded LM serving steps are
+operands derive from ``(seed, request_id)``). ``--mesh auto|N`` shards the
+ILA simulators' batch axis over every card or the first N
+(``ila.set_stream_mesh``): each batched group splits into equal shards, one
+per card, with identical results; on a host with fewer than two cards the
+mesh is disabled. It shards no model: sharded LM serving steps are
 ``launch.steps.make_serve_step``.
 """
 from __future__ import annotations
@@ -163,7 +164,7 @@ def drive_load(server, app: str, requests: int, batch: int, concurrency: int,
 def serve_cosim(args):
     """Serve ``args.cosim`` through a CosimServer under the load generator;
     returns the server (closed) and the request handles."""
-    from ..core import apps
+    from ..core import apps, ila
     from ..core.compile import compile_program
     from ..core.ila import TARGETS
     from ..core.serving import CosimServer, percentiles_ms
@@ -186,6 +187,9 @@ def serve_cosim(args):
     res = compile_program(expr)
     print(f"compiled {args.cosim}: offloads={res.accelerator_calls} "
           f"policy={res.stats['extraction']['policy']}")
+    mesh = ila.set_stream_mesh(args.mesh) if args.mesh != "off" else None
+    if args.mesh != "off":
+        print(f"stream mesh: {mesh if mesh is not None else 'disabled (single device host)'}")
 
     # the serving path defaults to the async engine (unlike the Executor's
     # process-wide compiled default): --engine > REPRO_ENGINE > pipelined.
@@ -304,6 +308,8 @@ def serve_cosim(args):
         if bad:
             raise RuntimeError(f"metric names violate the documented schema: {bad}")
         print(f"metrics: -> {TELEMETRY.export_metrics(args.metrics)}")
+    if mesh is not None:
+        ila.set_stream_mesh(None)
     return server, handles
 
 
@@ -320,6 +326,9 @@ def main(argv=None):
                     help="co-sim engine for measured requests (default: "
                          "REPRO_ENGINE or pipelined); warmup always runs "
                          "compiled to calibrate the cost models")
+    ap.add_argument("--mesh", default="off",
+                    help='"off" (default), "auto" (all host devices) or an '
+                         "int: shard the vmapped batch axis over a device mesh")
     ap.add_argument("--warmup", type=int, default=1,
                     help="warmup requests excluded from steady-state stats")
     ap.add_argument("--requests", type=int, default=16,
