@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --stream-mesh    # phase 21 alone, on every card
+    python3 chip_smoke.py --nccl           # phase 22 alone, on every card (two or more)
 
 Run from the repository root on a host with one CUDA card (it exits non-zero
 without one). Phases, one line each:
@@ -24,7 +25,14 @@ without one). Phases, one line each:
              bf16 (the wgmma design) within one bf16 step of the plain
              output and within 3e-2, plus TinyLlama's shape in bf16 with q
              scaled by 8, which spreads P far below 1), and the FlexASR and
-             VTA VT3 checks (ILA simulator vs kernel, worst deviation 0.0)
+             VTA VT3 checks (ILA simulator vs kernel, worst deviation 0.0);
+             then the AdaptivFloat exponent on the card (``af_exponent``):
+             ``floor_log2`` and ``af_exp_bias`` at the 254 powers of two in
+             [2^-126, 2^127] and one ulp each side, both signs, against the
+             CPU point by point (a differing point is printed, a finding
+             about the card's ``logf``, not a gate), and af_gemm with x's
+             largest magnitude at 2^13, 2^27, 2^-47 and 2^-126 against its
+             plain version, bit for bit (gated with the kernels)
 4. resmlp    the paper's Table-4 ResMLP row on FlexASR at the repository's
              configuration: teacher task, 600 training steps, flexible
              matching, then 40 points through the ideal, ILA (compiled),
@@ -270,13 +278,35 @@ without one). Phases, one line each:
              path "mesh"; every sharded group's shards on the mesh's
              devices, in order, where the Executor joins them.
 
+22. nccl_mesh
+             the sharded steps over real collectives: an NCCL group of one
+             spawned process per card (``launch.checks.spawn(...,
+             backend="nccl")``: rank r on card r), on a host of two cards or
+             more (on one card, one line: NCCL cannot put two ranks on one
+             card, and phase 16 runs the 1x1 NCCL mesh). (a) Phase 18's
+             cases (the same smoke configs, meshes and ``launch/checks.py``
+             gates) on the cards, seeded fp32 weights made on each rank's
+             card; (b) TinyLlama-1.1B at its published widths, all 22
+             layers, seeded fp32: one AdamW train step of 8 x 64 tokens,
+             then prefill + 3 decode steps through the serve bundles, on the
+             2x2 and 1x4 meshes, against the plain step on each rank's own
+             card (the same gates), with s/step sharded and plain (each step's
+             first call) and the collectives ``CommDebugMode`` counted;
+             flash_attention's launches on every rank equal to
+             ``nccl_flash_calls`` (all wgmma3), counted on path "nccl"; (c)
+             ``torchrun --nproc-per-node <cards> -m repro_torch.launch.train
+             --arch smollm_360m --smoke --steps 3``: exit 0, rank 0 trains
+             with a finite loss, every other rank prints the "fewer than 256
+             devices" line naming its own card. Each line with the card's
+             name and power limit and the number of cards.
+
 Every count of kernel launches is set to 0 just before a path runs and read
 just after it. Then one JSON line with an entry per kernel and per design of
 flash_attention (``{"kernels": [...]}``; each entry also gives its CUDA
 launches per call, its time above the launch floor and its launches per
 path: "table4" for phases 4-7, "vt3", "lm" for phases 10-12,
 "serve_cosim" for 13, "train" for 14-15, "dist" for 16, "families" for
-20 and "mesh" for 21), the card's
+20, "mesh" for 21 and "nccl" for 22), the card's
 nvidia-smi line
 and, last, the result line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -315,6 +345,11 @@ FLASH_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
 #: the same fp32 function to nearest even, so they differ by at most one
 #: bf16 step (2^-7 of |want| at most) over the fp32 sums' own difference
 FLASH_BF16_STEP = 2.0 ** -7
+#: af_gemm's check at x's largest magnitude 2^k: two powers where
+#: floor(log2) is one below k (in the reference and the port), two where
+#: dividing log(x) by ln 2 gave another exponent than the reference's
+#: multiply, 2^-126 with its window below the normals (the wide quantizer)
+AF_POWERS = (13, 27, -47, -126)
 #: the LM serving path: TinyLlama-1.1B, 4 prompts of 1024 tokens, 32 more
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "tinyllama_1_1b", 4, 1024, 32
 #: fp32 forward vs prefill + decode (tests/test_models.py:60); card vs CPU
@@ -370,6 +405,14 @@ GLOO_CASES = {(2, 2): ("qwen3_moe_30b_a3b", "deepseek_v3_671b", "falcon_mamba_7b
               (1, 4): ("qwen3_moe_30b_a3b", "deepseek_v3_671b", "falcon_mamba_7b"),
               (4, 1): ("qwen3_moe_30b_a3b",)}
 GLOO_SEQ_SPLIT = "smollm_360m"
+#: phase 22: phase 18's cases over NCCL, one process per card, on seeded fp32
+#: weights, and NCCL_ARCH at its published widths (all layers, nothing cut)
+#: on NCCL_PUBLISHED_MESHES; then the train launcher under torchrun on every
+#: card (NCCL_LAUNCH: arch, steps). The spawned group (every mesh in turn)
+#: and the launcher run are each killed after NCCL_TIMEOUT_S
+NCCL_ARCH, NCCL_PUBLISHED_MESHES = LM_ARCH, ((2, 2), (1, 4))
+NCCL_LAUNCH = ("smollm_360m", 3)
+NCCL_TIMEOUT_S = 450
 #: phase 19: each layer that recomputes in backward, alone at its published
 #: widths: one Mamba1 block of Falcon-Mamba-7B on 2 x 4096 bf16 tokens (16
 #: scan chunks of 256 steps), one MoE FFN of Qwen3-MoE on 4 x 32768 (four
@@ -437,6 +480,56 @@ CAMPAIGN_STATIC = dict(
 )
 
 
+def af_power_case(k: int, rng, dev, spec, m: int = 64, n: int = 32, kk: int = 64) -> tuple:
+    """af_gemm's arguments with x's largest magnitude exactly 2^k (one
+    element, every other below it) and w scaled by 2^-k, so that each
+    product and sum is a normal float (``AF_POWERS``); the biases from
+    ``af_exp_bias`` on ``dev``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.accel import numerics
+
+    xa = rng.standard_normal((m, kk))
+    xa = xa / np.abs(xa).max() * 0.99 * 2.0 ** k
+    xa[m // 2, kk // 3] = -(2.0 ** k)
+    x, w, b = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (
+        xa, rng.standard_normal((n, kk)) * 0.1 * 2.0 ** -k, rng.standard_normal((n,)) * 0.1))
+    return (x, w, b, numerics.af_exp_bias(x, spec), numerics.af_exp_bias(w, spec),
+            numerics.af_exp_bias(x @ w.T + b, spec))
+
+
+def af_exponent_card_vs_cpu(dev, spec) -> dict:
+    """``floor_log2`` and ``af_exp_bias`` (each value a tensor of its own)
+    on the card against the CPU at the 254 powers of two in [2^-126,
+    2^127] and one ulp each side, both signs (1524 values): the points
+    where they differ, with their inputs. The card's ``logf`` is not the
+    CPU's ``log``; a differing point is a finding, not a gate. One
+    ``af_exponent`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.accel import numerics
+
+    pw = np.ldexp(np.float32(1.0), np.arange(-126, 128)).astype(np.float32)
+    pts = np.concatenate([pw, np.nextafter(pw, np.float32(0)),
+                          np.nextafter(pw, np.float32(np.inf))])
+    x = torch.from_numpy(np.concatenate([pts, -pts]))
+    out = {"points": x.numel()}
+    for name, fn in (("floor_log2", lambda v: numerics.floor_log2(v.abs())),
+                     ("af_exp_bias", lambda v: torch.cat([numerics.af_exp_bias(u, spec)[None]
+                                                          for u in v.split(1)]))):
+        card, cpu = fn(x.to(dev)).cpu(), fn(x)
+        bad = torch.nonzero(card != cpu).flatten().tolist()
+        out[name] = [(float(x[i]), float(card[i]), float(cpu[i])) for i in bad]
+    phase("af_exponent", points=out["points"], floor_log2_differ=len(out["floor_log2"]),
+          af_exp_bias_differ=len(out["af_exp_bias"]),
+          differing=";".join(f"{v!r}:{c}/{p}" for v, c, p in
+                             out["floor_log2"] + out["af_exp_bias"]) or "none",
+          af_gemm_x_max=",".join(f"2^{k}" for k in AF_POWERS))
+    return out
+
+
 def entry_resources(ptxas: str) -> dict:
     """Per kernel entry in a ``-Xptxas -v`` report: (registers, spill store
     + load bytes), keyed by the kernel's name and template arguments."""
@@ -460,6 +553,23 @@ def kernel_label(name: str) -> str:
     return (m.group(1) + (m.group(2) or "").replace(" ", "")) if m else name[:32]
 
 
+def nvidia_smi() -> list:
+    """Each card's name and power limit, a line a card, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+
+
+def result_line() -> str:
+    """The last line of a run: the device the run passed on."""
+    import torch
+
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
 def phase(label: str, **fields) -> None:
     body = " ".join(f"{k}={v}" for k, v in fields.items())
     print(f"[{label}] {body}", flush=True)
@@ -471,17 +581,18 @@ def device_busy(label: str, fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.self_device_time_total > 0), key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows) / 1e6
-    if busy <= 0:
-        raise AssertionError(f"{label}: the profiler saw no device activity")
-    return wall, busy, rows[:15]
+    for _ in range(3):  # a trace the profiler lost whole is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                       if e.self_device_time_total > 0), key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows) / 1e6
+        if busy > 0:
+            return wall, busy, rows[:15]
+    raise AssertionError(f"{label}: the profiler saw no device activity")
 
 
 def cosim_serve_phase(dev, zero_counts, read_counts, launches_by_path: dict,
@@ -2039,6 +2150,270 @@ def stream_mesh_phase(dev, zero_counts, read_counts, peek_counts, report: dict, 
                              + json.dumps({c: rows[c] for c in failed}, default=str))
 
 
+def nccl_plan(cards: int) -> dict:
+    """Phase 22's meshes on a host of ``cards`` cards (two or more):
+    {mesh shape: ((arch, "smoke" or "published"), ...)}, each in turn over
+    one spawned NCCL group, a process per card. Four cards or more: phase 18's cases
+    (GLOO_CASES) on the first four, and NCCL_ARCH published on
+    NCCL_PUBLISHED_MESHES; two or three: 2x2's configs on a 1x2 mesh and
+    4x1's on 2x1 (the first two cards), NCCL_ARCH published on both."""
+    if cards < 2:
+        raise ValueError(f"an NCCL mesh needs two cards or more, this host has {cards}")
+    if cards >= GLOO_WORLD:
+        cases = {m: tuple((a, "smoke") for a in archs) for m, archs in GLOO_CASES.items()}
+        meshes = NCCL_PUBLISHED_MESHES
+    else:
+        cases = {m: tuple((a, "smoke") for a in GLOO_CASES[g])
+                 for m, g in (((1, 2), (2, 2)), ((2, 1), (4, 1)))}
+        meshes = tuple(cases)
+    for m in meshes:
+        cases[m] += ((NCCL_ARCH, "published"),)
+    return cases
+
+
+def nccl_flash_calls(cfg, serve: bool) -> int:
+    """flash_attention launches one rank of a phase-22 case makes, read
+    from the model code (``flash_calls``): the plain and the sharded train
+    step each run every attention layer twice (the forward and its
+    recompute in backward; the backward itself is plain) and DeepSeek-V3's
+    multi-token-prediction block once (``lm.loss_fn``, outside the
+    recompute), and with ``serve`` the plain and the sharded prefill once
+    a layer each (the rank's local head shard); decode attends in plain
+    ops."""
+    calls = flash_calls(cfg, 0)
+    train = 2 * calls["forward"] + cfg.mtp_depth
+    return 2 * train + (2 * calls["prefill"] if serve else 0)
+
+
+def _nccl_job(plan: dict) -> dict:
+    """One rank of phase 22: for each mesh shape of ``plan`` (``nccl_plan``),
+    a ("data", "model") mesh over the group on this rank's device (its card
+    under NCCL), then ``launch.checks.local_shard_case`` of each (arch,
+    "smoke" or "published") config there, on seeded fp32 weights made on
+    the device (MoE: ``checks.MOE_CAPACITY`` and ``checks.MOE_GROUP``),
+    each with its seconds, its flash_attention launches per design, the
+    rank's device and its peak memory; keyed "arch:width@DxM"."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import checks, mesh as rmesh
+    from repro_torch.models import api as lm_api, layers
+    from repro_torch.models.config import ShapeConfig
+
+    cuda = dist.get_backend() == "nccl"
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    layers.MOE_GROUP = checks.MOE_GROUP
+    shape = ShapeConfig(*checks.TRAIN_SHAPE)
+    out = {}
+    for mesh_shape, cases in plan.items():
+        mesh = rmesh.make_mesh(mesh_shape, ("data", "model"), device=dev)
+        for i in range(mesh.ndim):      # every dim's communicator up before the cases
+            dist.all_reduce(torch.ones(1, device=dev), group=mesh.get_group(i))
+        for arch, width in cases:
+            cfg = get_config(arch) if width == "published" else get_smoke_config(arch)
+            if cfg.n_experts:
+                cfg = dataclasses.replace(cfg, capacity_factor=checks.MOE_CAPACITY)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            model = lm_api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                       torch.float32)
+            batch = lm_api.make_train_batch(cfg, shape.global_batch, shape.seq_len,
+                                            np.random.default_rng(0), device=dev)
+            kfa.reset_launches()
+            t0 = time.perf_counter()
+            r = checks.local_shard_case(cfg, model, batch, mesh, serve=arch != GLOO_SEQ_SPLIT)
+            r["seconds"] = time.perf_counter() - t0
+            r["launches"] = dict(kfa.flash_attention.launches_by_design)
+            r["device"] = str(dev)
+            r["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+            out[f"{arch}:{width}@{'x'.join(map(str, mesh_shape))}"] = r
+            del model, batch
+            if cuda:
+                torch.cuda.empty_cache()
+    return out
+
+
+def _run_group(cmd, env, timeout: float):
+    """(exit code, stdout, stderr) of ``cmd`` in a session of its own; past
+    ``timeout`` seconds the whole session is killed (torchrun's ranks
+    included) and TimeoutError raised."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise TimeoutError(f"{' '.join(map(str, cmd))} ran past {timeout} s") from None
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    return proc.returncode, out, err
+
+
+def nccl_launcher(cards: int, out_dir: Path) -> dict:
+    """Phase 22c: ``torchrun --nproc-per-node cards -m
+    repro_torch.launch.train --arch NCCL_LAUNCH[0] --smoke --steps
+    NCCL_LAUNCH[1]`` from the checkout: rank 0's losses and mesh line, the
+    other ranks' "fewer than 256 devices" lines with the card each named,
+    the exit code and the seconds."""
+    import math
+    import os
+
+    arch, steps = NCCL_LAUNCH
+    ckpt = out_dir / "nccl_launch_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={cards}", "-m", "repro_torch.launch.train", "--arch", arch,
+           "--smoke", "--steps", str(steps), "--ckpt-dir", str(ckpt)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    try:
+        rc, out, err = _run_group(cmd, env, NCCL_TIMEOUT_S)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    others = {int(m.group(1)): m.group(3) for m in re.finditer(
+        r"rank (\d+) of (\d+): fewer than \d+ devices, rank 0 trains on one \((\S+)\)", out)}
+    loss = re.search(r"loss (\S+) -> (\S+) over (\d+) steps", out)
+    mesh = re.search(r"training \S+ on (\S+) mesh (\{[^}]*\})", out)
+    r = {"rc": rc, "seconds": time.perf_counter() - t0, "other_ranks": others,
+         "loss": (float(loss.group(1)), float(loss.group(2))) if loss else None,
+         "steps": int(loss.group(3)) if loss else 0,
+         "mesh": f"{mesh.group(1)}:{mesh.group(2)}" if mesh else None,
+         "stdout_tail": out[-2000:], "stderr_tail": err[-4000:]}
+    r["ok"] = (rc == 0 and r["loss"] is not None and all(map(math.isfinite, r["loss"]))
+               and r["steps"] == steps and others == {k: f"cuda:{k}" for k in range(1, cards)})
+    return r
+
+
+def nccl_phase(report: dict, smi: str, cards: int, out_dir: Path) -> dict:
+    """Phase 22: the sharded train and serve steps over NCCL, a process per
+    card (``nccl_plan``), against the plain step on each rank's own card,
+    gated by ``launch.checks.failures``; flash_attention launches per rank
+    against ``nccl_flash_calls``; then the train launcher under torchrun.
+    Returns the launches per design summed over the ranks (path "nccl").
+    On a one-card host: one line, nothing run (NCCL cannot put two ranks on
+    one card; phase 16 runs the 1x1 NCCL mesh)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import checks
+
+    card = smi.replace(" ", "_")
+    if cards < 2:
+        phase("nccl_mesh", cards=cards, ran=False,
+              reason="nccl_puts_one_rank_on_a_card_and_this_host_has_one",
+              covered_by="phase16_1x1_nccl_mesh", card=card)
+        report["nccl_mesh"] = {"cards": cards, "ran": False}
+        return {}
+    t_phase = time.perf_counter()
+    plan = nccl_plan(cards)
+    world = 4 if cards >= GLOO_WORLD else 2
+    results, failed, launched = {"cards": cards, "world": world}, [], {}
+    tmp = out_dir / "nccl"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    try:        # one group for every mesh: a spawn costs ~30 s of start-up
+        ranks = checks.spawn(_nccl_job, (plan,), world, tmp, NCCL_TIMEOUT_S, backend="nccl")
+    except Exception as e:
+        raise AssertionError(f"nccl_mesh: {e}") from e
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["group_s"] = time.perf_counter() - t_phase
+    for mesh_shape, cases in plan.items():
+        mesh_name = "x".join(map(str, mesh_shape))
+        for arch, width in cases:
+            key = f"{arch}:{width}@{mesh_name}"
+            cfg = get_config(arch) if width == "published" else get_smoke_config(arch)
+            seq_split = arch == GLOO_SEQ_SPLIT
+            want = nccl_flash_calls(cfg, serve=not seq_split)
+            per_rank = [rr[key] for rr in ranks]
+            bad = sorted({k for rr in per_rank for k in checks.failures(rr, seq_split)})
+            devices = [rr["device"] for rr in per_rank]
+            if devices != [f"cuda:{i}" for i in range(world)]:
+                bad.append("devices")
+            got = [rr["launches"] for rr in per_rank]
+            if any(g.get("wgmma3", 0) != want or sum(g.values()) != want for g in got):
+                bad.append("launches")
+            for d in got[0]:
+                launched[d] = launched.get(d, 0) + sum(g.get(d, 0) for g in got)
+            r = per_rank[0]
+            t = r["train"]
+            rel = {k: abs(t[k][0] - t[k][1]) / abs(t[k][1]) for k in ("loss", "grad_norm")}
+            phase("nccl_mesh", arch=arch, width=width, layers=cfg.n_layers, mesh=mesh_name,
+                  backend="nccl", cards=cards, loss_rel=f"{rel['loss']:.2e}",
+                  grad_norm_rel=f"{rel['grad_norm']:.2e}", m=f"{t['m']:.2e}",
+                  v=f"{t['v']:.2e}", params=f"{t['params']:.2e}",
+                  logits=f"{max(r['serve']['errs']):.2e}" if "serve" in r else "-",
+                  ids_equal=r["serve"]["same_ids"] if "serve" in r else "-",
+                  drops="/".join(map(str, r["drops"])),
+                  s_per_step_sharded=f"{t['s_sharded']:.4f}",
+                  s_per_step_plain=f"{t['s_plain']:.4f}", case_s=f"{r['seconds']:.2f}",
+                  collectives=",".join(f"{k}:{v}" for k, v in sorted(t["counts"].items())),
+                  flash_per_rank="/".join(str(sum(g.values())) for g in got), flash_want=want,
+                  peak_gb=f"{max(rr['peak_gb'] for rr in per_rank):.2f}",
+                  devices=",".join(devices), ok=not bad, card=card)
+            results[key] = {"ranks": per_rank, "flash_want": want, "failures": bad}
+            failed += [f"{key}:{k}" for k in bad]
+    launch = nccl_launcher(cards, out_dir)
+    phase("nccl_launcher", arch=NCCL_LAUNCH[0], smoke=True, nproc_per_node=cards,
+          rc=launch["rc"], steps=launch["steps"], mesh=launch["mesh"],
+          loss="->".join(f"{x:.4f}" for x in launch["loss"] or ()) or "none",
+          other_ranks=",".join(f"{k}:{v}" for k, v in sorted(launch["other_ranks"].items())),
+          seconds=f"{launch['seconds']:.2f}", ok=launch["ok"], cards=cards, card=card)
+    results["launcher"] = launch
+    if not launch["ok"]:
+        failed.append("launcher")
+    results["launches"] = launched
+    results["seconds"] = time.perf_counter() - t_phase
+    report["nccl_mesh"] = results
+    if failed:
+        raise AssertionError(f"nccl_mesh: {failed}")
+    phase("nccl_mesh_done", cards=cards, world=world,
+          flash_wgmma3=launched.get("wgmma3", 0), phase_s=f"{results['seconds']:.2f}",
+          card=card)
+    return launched
+
+
+def nccl_only() -> int:
+    """``--nccl``: phase 22 alone, over the host's cards (two or more; a
+    one-card host exits non-zero), after building flash_attention's kernel,
+    which every rank loads. Prints the phase's lines, the nvidia-smi lines
+    and the result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"chip_smoke --nccl: an NCCL mesh needs two cards or more, this host has "
+              f"{cards}", file=sys.stderr)
+        return 2
+    from repro_torch import device as devmod
+    from repro_torch.kernels import build
+
+    devmod.resolve("cuda")
+    smi = nvidia_smi()
+    phase("build", **{k: f"{v:.1f}s" for k, v in build.build(["flash_attention_sm90"]).items()})
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    report = {"nvidia_smi": smi}
+    try:
+        nccl_phase(report, smi[0], cards, out_dir)
+    finally:
+        (out_dir / "chip_smoke_nccl.json").write_text(json.dumps(report, indent=1,
+                                                                 default=str))
+    print("\n".join(smi))
+    print(result_line())
+    return 0
+
+
 def stream_mesh_only() -> int:
     """``--stream-mesh``: phase 21 alone, over every card of the host (the
     two-way repeated mesh on a one-card host), after the set-up it needs:
@@ -2061,9 +2436,7 @@ def stream_mesh_only() -> int:
     from repro_torch.launch import table4
 
     dev = devmod.resolve("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    smi = nvidia_smi()
     phase("build", **{k: f"{v:.1f}s" for k, v in build.build(["af_gemm", "fx_gemm"]).items()})
     wrappers = {"af_gemm": af_gemm, "fx_gemm": fx_gemm}
     by_path = {}
@@ -2103,9 +2476,7 @@ def stream_mesh_only() -> int:
     (out_dir / "chip_smoke_stream_mesh.json").write_text(json.dumps(report, indent=1,
                                                                     default=str))
     print("\n".join(smi))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(result_line())
     return 0
 
 
@@ -2148,7 +2519,7 @@ def main() -> int:
                                                            for d in designs]}
     #: the same launches per path: "table4" (phases 4-7), "vt3", "lm" (10-12),
     #: "serve_cosim" (13), "train" (14-15), "dist" (16), "families" (20),
-    #: "mesh" (21)
+    #: "mesh" (21), "nccl" (22: the ranks' launches, summed)
     launches_by_path = {name: {} for name in path_launches}
 
     def zero_counts():
@@ -2170,10 +2541,7 @@ def main() -> int:
         return counts
 
     # 1. device -------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()[0]
     assert devmod.tf32_off(), "TF32 must be off"
     phase("device", name=torch.cuda.get_device_name(0).replace(" ", "_"),
           count=torch.cuda.device_count(), tf32_off=True, torch=torch.__version__,
@@ -2276,6 +2644,8 @@ def main() -> int:
         # per-sample weight biases on a shared weight, at B == N and B != N
         "per_sample_w_4x16x4x64": per_sample_case(4, 16, 4, 64),
         "per_sample_w_3x16x128x64": per_sample_case(3, 16, 128, 64),
+        # x's largest magnitude at a power of two (the exponent's hard points)
+        **{f"x_max_2^{k}": af_power_case(k, rng, dev, spec) for k in AF_POWERS},
     }
     # (B, M, N, K): the fused HLSCNN conv groups (im2col patches of a
     # 16x16x32 activation image against the 5x5x32x32 weight), then ragged
@@ -2377,6 +2747,7 @@ def main() -> int:
             (e for n, e in flash_err.items() if flash_design[n] == d), default=0.0)
     report["flash_attention_err"] = flash_err
     report["flash_attention_design"] = flash_design
+    report["af_exponent"] = af_exponent_card_vs_cpu(dev, spec)
     _, vt3_fasr = fa._vt3_linear(device=dev)
     _, vt3_vta = vta._vt3_gemm(device=dev)
     n_checked = sum(len(c) for c in checks.values()) + len(flash_cases)
@@ -2840,29 +3211,39 @@ def main() -> int:
     # kernel's device time (us, mean of 5 calls)
     from torch.profiler import ProfilerActivity, profile
 
-    def cuda_kernels(fn, calls=5):
+    profile_tries = report["cuda_profile_tries"] = {}
+
+    def cuda_kernels(fn, label, calls=5, tries=3):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        # a kernel seen at all ran in every call: round the count up, so an
-        # event the profiler drops cannot hide a kernel
-        return {e.key: (-(-e.count // calls), e.self_device_time_total / e.count)
-                for e in prof.key_averages() if e.self_device_time_total > 0
-                and not e.key.startswith(("Memcpy", "Memset"))}
+        for attempt in range(1, tries + 1):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            # a kernel seen at all ran in every call: round the count up, so an
+            # event the profiler drops cannot hide a kernel
+            seen = {e.key: (-(-e.count // calls), e.self_device_time_total / e.count)
+                    for e in prof.key_averages() if e.self_device_time_total > 0
+                    and not e.key.startswith(("Memcpy", "Memset"))}
+            profile_tries[label] = attempt
+            # every call launches at least one kernel, so a trace with none is
+            # one the profiler lost whole: profile again; a trace with kernels
+            # is taken as it is
+            if seen:
+                return seen
+        return seen
 
     def flash_call(name):
         args, causal = flash_cases[name]
         return lambda: flash_attention(*args, causal=causal)
 
-    per_kernel = {
-        "af_gemm": cuda_kernels(lambda: af_gemm(*af_shapes["fused_8x128x256x128"], spec=spec)),
-        "fx_gemm": cuda_kernels(lambda: fx_kernel(*fx_shapes["fused_8x144x32x800_w16"])),
-        "int8_gemm": cuda_kernels(lambda: int8_gemm(*i8_shapes["vta_tok_64x16x16"])),
-        "flash_attention": cuda_kernels(flash_call("tinyllama_prefill_bf16")),
-        "flash_attention_fp32": cuda_kernels(flash_call("tinyllama_prefill_fp32"))}
+    per_kernel = {label: cuda_kernels(fn, label) for label, fn in (
+        ("af_gemm", lambda: af_gemm(*af_shapes["fused_8x128x256x128"], spec=spec)),
+        ("fx_gemm", lambda: fx_kernel(*fx_shapes["fused_8x144x32x800_w16"])),
+        ("int8_gemm", lambda: int8_gemm(*i8_shapes["vta_tok_64x16x16"])),
+        ("flash_attention", flash_call("tinyllama_prefill_bf16")),
+        ("flash_attention_fp32", flash_call("tinyllama_prefill_fp32")))}
     per_call = {k: sum(n for n, _ in v.values()) for k, v in per_kernel.items()}
     report["cuda_launches_per_call"] = per_call
     report["cuda_kernel_us"] = {k: {name: us for name, (_, us) in v.items()}
@@ -2881,6 +3262,7 @@ def main() -> int:
                         + (f"/lib={v['library_ms']:.5f}" if v["library_ms"] is not None else "")
              for k, v in timings.items()},
           cuda_launches_per_call="/".join(f"{k}:{v}" for k, v in per_call.items()),
+          profile_tries="/".join(f"{k}:{v}" for k, v in profile_tries.items()),
           kernel_us="/".join(f"{kernel_label(name)}={us:.3f}"
                              for v in report["cuda_kernel_us"].values()
                              for name, us in v.items()))
@@ -3004,6 +3386,12 @@ def main() -> int:
     # 21. the ILA stream mesh: the simulators' batch axis split over devices
     stream_mesh_phase(dev, zero_counts, read_counts, peek_counts, report, smi,
                       (res.program, trained, X, y), resnet_prep, served_apps["resmlp"], groups)
+    # 22. the sharded steps over NCCL, a process per card (one line on one card)
+    torch.cuda.empty_cache()        # card 0 is rank 0's too
+    for design, n in nccl_phase(report, smi, torch.cuda.device_count(), out_dir).items():
+        for name in ("flash_attention", f"flash_attention:{design}"):
+            path_launches[name] += n
+            launches_by_path[name]["nccl"] = launches_by_path[name].get("nccl", 0) + n
 
     # the kernel line, one entry per CUDA source and per design of
     # flash_attention (bf16 and fp32, both from flash_attention_sm90.cu): the
@@ -3052,11 +3440,10 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(result_line())
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(stream_mesh_only() if sys.argv[1:] == ["--stream-mesh"] else main())
+    sys.exit({"--stream-mesh": stream_mesh_only, "--nccl": nccl_only}.get(
+        " ".join(sys.argv[1:]), main)())

@@ -16,10 +16,13 @@ compute runs in fp32 on the accelerator's representable set.
 
 Two choices keep these bit-identical to the JAX reference (``repro``):
 
-* the exponent is ``floor(log(x) / ln 2)``, the reference's own definition
-  of ``log2`` (``jnp.log2`` is ``log(x) / log(2)``), not an exact exponent:
-  just below a power of two the rounded quotient lands on the power itself,
-  and the two definitions then pick different binades;
+* the exponent is ``floor(log(x) * INV_LN2)``, what the reference computes,
+  not an exact exponent. ``jnp.log2`` is ``log(x) / log(2)``, and XLA's
+  algebraic simplifier compiles that division by a constant into a
+  multiplication by its float32 reciprocal. The rounded product lands on
+  the power itself just below a power of two, and one below it at some
+  exact powers (2^13, 2^27, 2^-47, ...); dividing instead, or an exact
+  exponent, picks another binade there;
 * ``2^e`` is built exactly from the exponent bits (the CUDA kernel uses
   ``ldexpf``), never through ``exp2``.
 
@@ -34,8 +37,9 @@ import torch
 
 Bias = Union[float, torch.Tensor]
 
-#: ln 2 in float32 (0x3f317218); the CUDA kernel divides by the same constant
-LN2 = 0.6931471805599453
+#: 1 / ln 2 in float32 (0x3fb8aa3b), the constant XLA multiplies ``log(x)``
+#: by in the reference's ``jnp.log2``; the CUDA kernel uses the same bits
+INV_LN2 = 1.44269502
 
 
 # --------------------------------------------------------------------------
@@ -54,9 +58,11 @@ class AdaptivFloatSpec:
 
 
 def floor_log2(x: torch.Tensor) -> torch.Tensor:
-    """``floor(log(x) / ln 2)`` in float32, the reference's exponent."""
-    ln2 = torch.full((), LN2, dtype=torch.float32, device=x.device)
-    return torch.floor(torch.log(x) / ln2)
+    """``floor(log(x) * INV_LN2)`` in float32, the reference's exponent: the
+    reference divides by log 2, and XLA compiles that into a multiply by
+    the float32 reciprocal of ln 2."""
+    inv_ln2 = torch.full((), INV_LN2, dtype=torch.float32, device=x.device)
+    return torch.floor(torch.log(x) * inv_ln2)
 
 
 def exp2_int(e: torch.Tensor) -> torch.Tensor:

@@ -45,8 +45,9 @@
 // an H100; at the 67 TFLOP/s fp32 rate its products take 1.0 us.
 //
 // The quantizer mirrors the plain version (repro_torch/accel/numerics.py)
-// operation for operation: exponent floor(logf(x) / ln2) (an IEEE division,
-// the reference's own log2), rintf (round half to even), the exponent
+// operation for operation: exponent floor(logf(x) * (1 / ln 2)) (the
+// reference's log2 is log(x) / log(2), which XLA compiles into a multiply
+// by the float32 reciprocal), rintf (round half to even), the exponent
 // clamp, the mantissa clamp and its bump to 2.0, saturation at the top and
 // the flush below vmin / 2. Every other division by a power of two and
 // every ldexpf is a multiplication by an exact power of two built from
@@ -63,7 +64,7 @@
 // 1.05 MB of output; 1.70 MB at 3.35 TB/s is 0.51 us, and the bytes bound
 // it (the products take 0.07 us on the bf16 tensor cores, where AF(8,3)
 // values are exact). What sets the pace is latency and instruction count:
-// a quantization is ~60 dependent instructions (logf, one division), so it
+// a quantization is ~60 dependent instructions (logf, one multiply), so it
 // runs once per element across the whole card with 4 independent elements
 // per thread, and the product runs one 8-byte shared load per two FMAs
 // over 4 outputs per thread and at least 132 blocks. Each of the two
@@ -78,8 +79,10 @@ constexpr int QT = 32;                 // quantize pass: QT x QT tiles,
 constexpr int QTHREADS = QT * QT / 4;  // 4 elements per thread
 constexpr int BK = 32;         // product: K rows staged per cp.async stage
 constexpr int STAGES = 2;      // product: cp.async ring depth
-// float32 nearest to ln 2 (0x3f317218), the constant the plain version uses
-constexpr float LN2F = 0.693147182f;
+// float32 nearest to 1 / ln 2 (0x3fb8aa3b), the constant the plain version
+// and the reference's compiled log2 multiply by; from its bits, so that no
+// decimal literal can round to another float
+__device__ __forceinline__ float inv_ln2f() { return __int_as_float(0x3fb8aa3b); }
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
@@ -96,7 +99,7 @@ __device__ float af_quant_wide(float x, float e_lo, int n_exp, int n_man) {
   const float sign = (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
   const float ax = fabsf(x);
   const float safe = ax > 0.0f ? ax : 1.0f;
-  const float e = clampf(floorf(logf(safe) / LN2F), e_lo, e_hi);
+  const float e = clampf(floorf(logf(safe) * inv_ln2f()), e_lo, e_hi);
   const float man = clampf(ax / ldexpf(1.0f, (int)e), 1.0f, top);
   float man_q = rintf(man * p) / p;
   const bool bump = man_q >= 2.0f;
@@ -135,7 +138,7 @@ __device__ __forceinline__ float af_quant_fast(float x, const Window& w) {
   const float sign = (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
   const float ax = fabsf(x);
   const float safe = ax > 0.0f ? ax : 1.0f;
-  const float e = clampf(floorf(logf(safe) / LN2F), w.e_lo, w.e_hi);
+  const float e = clampf(floorf(logf(safe) * inv_ln2f()), w.e_lo, w.e_hi);
   const float man = clampf(ax * pow2i(-(int)e), 1.0f, w.top);
   float man_q = rintf(man * w.p) * w.inv_p;
   const bool bump = man_q >= 2.0f;

@@ -7,7 +7,8 @@ decode through the serve bundles (:func:`serve_vs_plain`).
 :func:`local_shard_case` runs both with the MoE's dropped slots and the
 placements that reach the o-projection recorded, and :func:`failures`
 names the gates a result misses. :func:`spawn` runs a function on the
-ranks of a ``gloo`` group of CPU processes.
+ranks of a process group: a ``gloo`` group of CPU processes, or an
+``nccl`` group of one process per card (:func:`rank_device`).
 
 The port's tests run these checks on the reference's weights; ``python
 chip_smoke.py`` runs them on the port's own, under the PyTorch release of
@@ -58,12 +59,22 @@ def rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def _synced(model) -> float:
+    """``time.perf_counter()`` once the work queued on the model's card is
+    done (at once on the CPU)."""
+    dev = next(model.parameters()).device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
 def train_vs_plain(cfg, model, batch, mesh) -> dict:
     """One AdamW step of the sharded bundle on ``mesh`` and of the plain
     step, from the same weights and batch (``TRAIN_SHAPE``): their losses,
     grad norms, parameters and moments, the sharded parameters against the
-    AdamW update of the sharded step's own moments, and the collectives
-    DTensor ran."""
+    AdamW update of the sharded step's own moments, the collectives
+    DTensor ran, and each step's seconds (``s_plain``, ``s_sharded``: the
+    first call of each, set-up included)."""
     from torch.distributed.tensor.debug import CommDebugMode
 
     from ..models.config import ShapeConfig
@@ -74,11 +85,15 @@ def train_vs_plain(cfg, model, batch, mesh) -> dict:
     shape = ShapeConfig(*TRAIN_SHAPE)
     kw = dict(optimizer="adamw", lr=1e-3, warmup=0, total_steps=10)
     opt_state = make_optimizer("adamw").init(model.tree())
+    t0 = time.perf_counter()
     p_model, p_opt, p_metrics = steps.make_train_step(cfg, shape, **kw)(model, opt_state,
                                                                        batch, 0)
+    t1 = _synced(model)
     bundle = steps.make_train_step(cfg, shape, mesh, **kw)
+    t2 = time.perf_counter()
     with CommDebugMode() as comm:
         s_model, s_opt, s_metrics = bundle.fn(model, opt_state, batch, 0)
+    t3 = _synced(model)
     counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
     # the AdamW update (optim.adamw_update, step 1) of the sharded moments
     lr, (b1, b2, eps, wd) = s_metrics["lr"], (0.9, 0.95, 1e-8, 0.1)
@@ -102,6 +117,8 @@ def train_vs_plain(cfg, model, batch, mesh) -> dict:
         "moved": max(float((a - b).detach().abs().max())
                      for a, b in zip(tree_leaves(p_model.tree()), tree_leaves(model.tree()))),
         "counts": counts,
+        "s_plain": t1 - t0,
+        "s_sharded": t3 - t2,
         "sharded_leaves": sum(1 for p in s_model.parameters()
                               if any(not pl.is_replicate() for pl in p.placements)),
         "leaves": len(list(s_model.parameters())),
@@ -173,12 +190,15 @@ def _recorded():
 def local_shard_case(cfg, model, batch, mesh, serve: bool = True) -> dict:
     """:func:`train_vs_plain`, then (``serve``) :func:`serve_vs_plain` on
     the batch's tokens, with the unsharded MoE's dropped slots of each
-    (``drops``) and the placements that reached the o-projection."""
+    (``drops``) and the placements that reached the o-projection. The
+    serve caches take the model's device and dtype."""
+    like = next(model.parameters())
     with _recorded() as (drops, seen):
         out = {"train": train_vs_plain(cfg, model, batch, mesh), "moe": bool(cfg.n_experts)}
         out["drops"] = [sum(drops)]
         if serve:
-            out["serve"] = serve_vs_plain(cfg, model, batch["tokens"], mesh)
+            out["serve"] = serve_vs_plain(cfg, model, batch["tokens"], mesh,
+                                          device=like.device, dtype=like.dtype)
             out["drops"].append(sum(drops) - out["drops"][0])
     out["o_proj_placements"] = sorted(set(seen))
     return out
@@ -218,50 +238,99 @@ def failures(r: dict, seq_split: bool = False) -> list:
     return bad
 
 
-def _rank(rank: int, fn, args, world: int, tmp: str) -> None:
+#: the backends :func:`spawn` starts a group of
+BACKENDS = ("gloo", "nccl")
+
+
+def rank_device(rank: int, backend: str) -> torch.device:
+    """The device rank ``rank`` of a ``backend`` group runs on: the CPU for
+    ``gloo``; for ``nccl``, card ``rank``, made the process's current
+    device. NCCL refuses two ranks on one card, so a rank with no card of
+    its own raises (it never shares one, nor falls back to gloo)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    if backend == "gloo":
+        return torch.device("cpu")
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if rank >= cards:
+        raise RuntimeError(f"rank {rank} of an nccl group has no card of its own: "
+                           f"this host has {cards}")
+    torch.cuda.set_device(rank)
+    return torch.device("cuda", rank)
+
+
+def _rank(rank: int, fn, args, world: int, tmp: str, backend: str = "gloo") -> None:
     import torch.distributed as dist
 
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+    rank_device(rank, backend)
+    if backend == "gloo":
+        torch.set_num_threads(1)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), world),
                             rank=rank, world_size=world)
     try:
         out, err = fn(*args), None
     except Exception:
         out, err = None, traceback.format_exc()
+    # the result first: a rank whose peers wait in a collective may never
+    # get past the group's destruction
+    try:
+        with open(os.path.join(tmp, f"result_{rank}.pkl"), "wb") as f:
+            pickle.dump({"out": out, "err": err}, f)
     finally:
         dist.destroy_process_group()
-    with open(os.path.join(tmp, f"result_{rank}.pkl"), "wb") as f:
-        pickle.dump({"out": out, "err": err}, f)
 
 
-def spawn(fn, args, world: int, tmp, timeout: float) -> list:
-    """``fn(*args)`` on ``world`` spawned CPU processes, each a rank of a
-    ``gloo`` group over a FileStore in the directory ``tmp``; every rank's
-    result. A rank's error raises, as does a group that outlives
-    ``timeout`` seconds (its processes are killed)."""
+def _results(tmp: str, world: int) -> list:
+    """Each rank's pickled result, None where a rank wrote none."""
+    out = []
+    for r in range(world):
+        path = os.path.join(tmp, f"result_{r}.pkl")
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                out.append(pickle.load(f))
+        else:
+            out.append(None)
+    return out
+
+
+def spawn(fn, args, world: int, tmp, timeout: float, backend: str = "gloo") -> list:
+    """``fn(*args)`` on ``world`` spawned processes, each a rank of a
+    ``backend`` group over a FileStore in the directory ``tmp``; every
+    rank's result. ``gloo``: CPU processes of one thread each; ``nccl``:
+    rank r on card r (:func:`rank_device`; fewer cards than ranks raises
+    before any process starts). A rank's error raises, as does a group that
+    outlives ``timeout`` seconds (its processes are killed)."""
     import torch.multiprocessing as mp
 
+    if backend == "nccl":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if world > cards:
+            raise RuntimeError(f"an nccl group of {world} ranks needs a card each; "
+                               f"this host has {cards}")
+    elif backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
     tmp = str(tmp)
     for name in ["store"] + [f"result_{r}.pkl" for r in range(world)]:
         if os.path.exists(os.path.join(tmp, name)):
             os.remove(os.path.join(tmp, name))
-    ctx = mp.start_processes(_rank, args=(fn, args, world, tmp), nprocs=world, join=False,
-                             start_method="spawn")
+    ctx = mp.start_processes(_rank, args=(fn, args, world, tmp, backend), nprocs=world,
+                             join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
         while not ctx.join(timeout=1):
             if time.monotonic() > deadline:
+                errs = [r["err"] for r in _results(tmp, world) if r and r["err"]]
                 raise TimeoutError(f"{getattr(fn, '__name__', fn)}{args[:2]} ran past "
-                                   f"{timeout} s")
+                                   f"{timeout} s" + (f"; a rank failed: {errs[0]}" if errs else ""))
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
                 p.join()
-    results = []
-    for r in range(world):
-        with open(os.path.join(tmp, f"result_{r}.pkl"), "rb") as f:
-            results.append(pickle.load(f))
+    results = _results(tmp, world)
+    if None in results:
+        raise RuntimeError(f"rank {results.index(None)} of {getattr(fn, '__name__', fn)} "
+                           f"wrote no result")
     errs = [r["err"] for r in results if r["err"]]
     if errs:
         raise RuntimeError(errs[0])

@@ -25,6 +25,7 @@ import argparse
 import os
 import tempfile
 
+import torch
 import torch.distributed as dist
 
 from .. import device as devmod
@@ -38,11 +39,15 @@ from .mesh import axis_sizes, make_production_mesh, make_smoke_mesh
 def _process_group(dev) -> bool:
     """Join ``torchrun``'s process group (its environment names the
     address, rank and world size) or start a group of one on a free local
-    port; True when this launcher started it (and so ends it)."""
+    port; True when this launcher started it (and so ends it). Under
+    ``torchrun`` on the GPU, the rank's card (``LOCAL_RANK``) becomes the
+    current device first: NCCL refuses two ranks on one card."""
     if dist.is_initialized():
         return False
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if "WORLD_SIZE" in os.environ:
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
         dist.init_process_group(backend)
     else:
         store = dist.TCPStore("localhost", 0, 1, is_master=True)
@@ -84,6 +89,7 @@ def main(argv=None):
 
     dev = devmod.resolve(args.device)
     started = _process_group(dev)
+    dev = devmod.resolve(args.device)   # under torchrun, this rank's own card
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     shape = ShapeConfig("train", seq_len=args.seq, global_batch=args.batch, kind="train")
     data = SyntheticLM(cfg.vocab, args.batch, args.seq, seed=0)
@@ -91,7 +97,7 @@ def main(argv=None):
         mesh = _mesh(dev, args.multi_pod)
         if mesh is None:
             print(f"rank {dist.get_rank()} of {dist.get_world_size()}: fewer than "
-                  f"{PRODUCTION_DEVICES} devices, rank 0 trains on one")
+                  f"{PRODUCTION_DEVICES} devices, rank 0 trains on one ({dev})")
             return None
         ckpt = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_ckpt_")
         trainer = Trainer(

@@ -161,9 +161,16 @@ def recompute(fn, *args):
     """``fn(*args)``, its activations recomputed in backward instead of
     kept (``torch.utils.checkpoint``, non-reentrant) whenever grad is
     enabled: the reference's ``jax.checkpoint``. Autograd keeps the tensor
-    arguments only; under no_grad it is a plain call."""
+    arguments only; under no_grad it is a plain call.
+
+    The forward and the recomputation each run in a copy of the caller's
+    context variables (the mesh hints above all): autograd runs a CUDA
+    backward on a thread of its own, where they are unset, and a
+    recomputation without the hints would lay its tensors out otherwise
+    than the forward did."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        ctx = contextvars.copy_context()
+        return checkpoint(lambda *a: ctx.copy().run(fn, *a), *args, use_reentrant=False)
     return fn(*args)
 
 

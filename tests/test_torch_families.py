@@ -163,3 +163,36 @@ def test_card_vs_cpu_check_runs_every_family(arch, attention_calls):
     assert dev == 0.0 and close
     want = smoke.flash_calls(cfg, 3)
     assert counts == {"prefill": want["prefill"], "decode": want["decode"], "forward": 0}
+
+
+@pytest.fixture
+def one_rank_gloo():
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", smoke.GLOO_CASES[(2, 2)] + (smoke.NCCL_ARCH,))
+def test_nccl_flash_calls_count_the_kernel_calls(arch, one_rank_gloo, monkeypatch):
+    """Phase 22's reckoning of flash_attention launches per rank
+    (``chip_smoke.nccl_flash_calls``) against the kernel calls of its case
+    (``_nccl_job``: a train step plain and sharded, and the two prefills)
+    at the smoke config on a 1x1 gloo mesh: the MoE's dispatch, MLA with
+    its multi-token-prediction block, Mamba1, SmolLM's train step alone."""
+    from repro_torch.launch import checks
+
+    calls = []
+    flash = layers._flash_padded
+    monkeypatch.setattr(layers, "_flash_padded", lambda *a: calls.append(1) or flash(*a))
+    monkeypatch.setattr(layers, "MOE_GROUP", layers.MOE_GROUP)   # the job sets its own
+    r = smoke._nccl_job({(1, 1): ((arch, "smoke"),)})[f"{arch}:smoke@1x1"]
+    want = smoke.nccl_flash_calls(get_smoke_config(arch), serve=arch != smoke.GLOO_SEQ_SPLIT)
+    assert len(calls) == want
+    assert r["device"] == "cpu" and r["launches"] == {"wgmma": 0, "wgmma3": 0}
+    loss, plain = r["train"]["loss"]
+    assert abs(loss - plain) <= checks.REL * abs(plain)
+

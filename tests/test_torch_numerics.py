@@ -3,8 +3,10 @@
 AdaptivFloat quantization is bit-exact with ``repro.accel.numerics`` on
 random data and on the lattice's boundary inputs: powers of two and the
 floats just below them, lattice midpoints (round half to even), 0, the
-saturation edge, vmin/2 and 4.5. The exponent is ``floor(log(x) / ln 2)``
-in both, so just below a power of two both pick the same binade.
+saturation edge, vmin/2 and 4.5. The exponent is ``floor(log(x) * (1 / ln
+2))`` in both (``jnp.log2`` divides by log 2, and XLA compiles that into a
+multiply by the float32 reciprocal), so at every power of two and just
+below it both pick the same binade.
 
 One documented divergence: ``jnp.exp2`` on the CPU backend misses exact
 powers of two for some exponents of magnitude 13 and more, so there the
@@ -125,6 +127,98 @@ def test_af_ste_identity_gradient():
     y.sum().backward()
     np.testing.assert_array_equal(x.grad.numpy(), np.ones(33, np.float32))
     np.testing.assert_array_equal(y.detach().numpy(), _port_q(x.detach().numpy(), None))
+
+
+#: the exponents e at which floor(log2(2^e)) is e - 1 in the reference (XLA's
+#: log(x) * float32(1 / ln 2) rounds below e) and in the port alike
+POWERS_BELOW = (13, 15, 26, 27, 30, 31, 49, 52, 54, 57, 60, 62, 93, 98, 103, 104, 108, 109,
+                114, 119, 120, 124, 125)
+#: the largest subnormal, 2^-126 one ulp down: XLA on the CPU flushes it to
+#: zero (floor(log2) -inf, bias -7 from amax 1.0), the port keeps it
+LARGEST_SUBNORMAL = np.nextafter(np.float32(2.0 ** -126), np.float32(0))
+
+
+def _powers_and_neighbours():
+    """2^e for e in [-126, 127], one ulp below and one above each, both
+    signs: 1524 float32 values."""
+    p = np.ldexp(np.float32(1.0), np.arange(-126, 128)).astype(np.float32)
+    x = np.concatenate([p, np.nextafter(p, np.float32(0)), np.nextafter(p, np.float32(np.inf))])
+    return np.concatenate([x, -x])
+
+
+def test_floor_log2_and_bias_equal_the_reference_at_every_power_of_two():
+    x = _powers_and_neighbours()
+    ax = np.abs(x)
+    kept = ax != LARGEST_SUBNORMAL
+    assert kept.sum() == x.size - 2
+    want = np.asarray(jnp.floor(jnp.log2(jnp.asarray(ax))))
+    got = tn.floor_log2(torch.from_numpy(ax)).numpy()
+    np.testing.assert_array_equal(got[kept], want[kept])
+    assert (want[~kept] == -np.inf).all() and (got[~kept] == -126).all()
+    for v in x:
+        a = np.array([v], np.float32)
+        want_b = float(jn.af_exp_bias(jnp.asarray(a), J_SPEC))
+        got_b = float(tn.af_exp_bias(torch.from_numpy(a), T_SPEC))
+        assert got_b == (want_b if abs(v) != LARGEST_SUBNORMAL else -133.0), (v, got_b, want_b)
+    # the three magnitudes of one tensor, as a tensor's amax meets them
+    for e in range(-126, 128):
+        a = np.array([2.0 ** e, -(2.0 ** e) / 3, 2.0 ** e / 100], np.float32)
+        assert float(tn.af_exp_bias(torch.from_numpy(a), T_SPEC)) == float(
+            jn.af_exp_bias(jnp.asarray(a), J_SPEC)), e
+
+
+def test_af_quantize_equals_the_reference_at_every_power_of_two():
+    """No bias given (each value its own tensor): equal to the reference
+    but where the reference's ``jnp.exp2`` misses the exact power at an
+    exponent the quantizer uses (the value's binade e or the window's
+    bottom e - 7), and at subnormal inputs, which XLA flushes. There the
+    port stays on the AF lattice."""
+    import jax
+
+    x = _powers_and_neighbours()
+    want = np.asarray(jax.vmap(lambda a: jn.af_quantize(a, J_SPEC))(jnp.asarray(x[:, None])))[:, 0]
+    got = np.array([float(tn.af_quantize(torch.from_numpy(x[i:i + 1]), T_SPEC)[0])
+                    for i in range(x.size)], np.float32)
+    inexact = {e for e in range(-149, 128)
+               if float(jnp.exp2(jnp.float32(e))) != float(np.ldexp(1.0, e))}
+    e = tn.floor_log2(torch.from_numpy(np.abs(x))).numpy().astype(int)
+    known = (np.abs(x) < np.float32(2.0 ** -126)) | np.array(
+        [int(k) in inexact or int(k) - 7 in inexact for k in e])
+    np.testing.assert_array_equal(got[~known], want[~known])
+    assert (~known).sum() >= 100
+    mant, _ = np.frexp(np.abs(got[known]).astype(np.float64))
+    np.testing.assert_array_equal(mant * 32, np.round(mant * 32))
+
+
+def test_floor_log2_multiplies_by_the_float32_reciprocal_of_ln2():
+    """On a log-spaced sweep and at the powers of two and their neighbours,
+    ``floor_log2`` is floor(log(x) * 0x3fb8aa3b), the product rounded to
+    float32, never the quotient by ln 2."""
+    powers = _powers_and_neighbours()
+    x = np.concatenate([np.geomspace(1e-37, 1e37, 200_001).astype(np.float32),
+                        powers[(powers > 0) & (powers != LARGEST_SUBNORMAL)]])
+    logs = torch.log(torch.from_numpy(x)).numpy()
+    inv_ln2 = np.uint32(0x3fb8aa3b).view(np.float32)
+    assert np.float32(tn.INV_LN2) == inv_ln2
+    np.testing.assert_array_equal(tn.floor_log2(torch.from_numpy(x)).numpy(),
+                                  np.floor(logs * inv_ln2))
+    # the product and the quotient part at exact powers of two
+    p = np.ldexp(np.float32(1.0), np.arange(-126, 128)).astype(np.float32)
+    lp = torch.log(torch.from_numpy(p)).numpy()
+    assert (np.floor(lp * inv_ln2) != np.floor(lp / np.float32(np.log(2)))).any()
+
+
+def test_reference_floor_log2_is_one_below_at_the_listed_powers():
+    """A reference fact the port keeps: floor(log2(2^e)) is e - 1 at these
+    exponents, and exact at every other e in [-126, 127], in both."""
+    e = np.arange(-126, 128)
+    p = np.ldexp(np.float32(1.0), e).astype(np.float32)
+    want = np.asarray(jnp.floor(jnp.log2(jnp.asarray(p))))
+    got = tn.floor_log2(torch.from_numpy(p)).numpy()
+    assert tuple(e[want != e]) == POWERS_BELOW
+    assert tuple(e[got != e]) == POWERS_BELOW
+    assert (want[want != e] == e[want != e] - 1).all()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize(

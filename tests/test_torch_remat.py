@@ -300,3 +300,31 @@ def test_sharded_moe_pieces_keep_no_dispatch_tensor(monkeypatch):
     for shape in _moe_kept_shapes(cfg, 8, cfg.n_experts // 2, cfg.top_k):
         assert kept.count(shape) == 0, (shape, kept.shapes)
     assert kept.count((8, cfg.d_model)) == 4        # each piece's tokens, its input
+
+
+def test_recompute_sees_the_forward_mesh_hints_on_another_thread():
+    """Autograd runs a CUDA backward on a thread of its own, where context
+    variables are unset; the recomputation still sees the forward's mesh
+    hints (here the backward runs on a new thread)."""
+    import threading
+
+    hints = ("mesh", {"data": 2, "model": 2})
+    seen = []
+
+    def fn(x):
+        seen.append(TL._MESH_HINTS.get())
+        return x.sin() * 2
+
+    token = TL._MESH_HINTS.set(hints)
+    try:
+        x = torch.linspace(-1, 1, 5, requires_grad=True)
+        y = TL.recompute(fn, x)
+    finally:
+        TL._MESH_HINTS.reset(token)
+    grads = []
+    t = threading.Thread(target=lambda: grads.append(torch.autograd.grad(y.sum(), x)[0]))
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert seen == [hints, hints]        # the forward and its recomputation
+    torch.testing.assert_close(grads[0], 2 * torch.cos(x.detach()), rtol=0, atol=0)
