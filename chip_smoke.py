@@ -26,13 +26,20 @@ without one). Phases, one line each:
              output and within 3e-2, plus TinyLlama's shape in bf16 with q
              scaled by 8, which spreads P far below 1), and the FlexASR and
              VTA VT3 checks (ILA simulator vs kernel, worst deviation 0.0);
-             then the AdaptivFloat exponent on the card (``af_exponent``):
+             then the reference's log, exp and exp2 on the card
+             (``af_exponent``, a gate: no point may differ from the CPU):
              ``floor_log2`` and ``af_exp_bias`` at the 254 powers of two in
-             [2^-126, 2^127] and one ulp each side, both signs, against the
-             CPU point by point (a differing point is printed, a finding
-             about the card's ``logf``, not a gate), and af_gemm with x's
-             largest magnitude at 2^13, 2^27, 2^-47 and 2^-126 against its
-             plain version, bit for bit (gated with the kernels)
+             [2^-126, 2^127] and one ulp each side, both signs, and on the
+             +-2048-ulp band around each (af_exp_bias at every 256th
+             point); ``exp2_ref`` at every integer in [-149, 127];
+             ``log_f32`` / ``exp_f32`` on 2^20 bit patterns;
+             ``af_quantize`` on N(0, sigma^2), sigma 1e-6, 1e-3, 1, 1e3;
+             VecUnit's EW_START (mul, sigmoid) on the int16 grids at
+             exponents -13 to -15; and af_gemm with x's largest magnitude at
+             2^13, 2^27, 2^-47, 2^-126, 2^-6, 2^-20, 2^20, 2^100, 2^-122
+             and 2^-124 against its plain version, bit for bit (NaN where
+             the plain version has NaN, which only 2^-126 may have;
+             gated with the kernels)
 4. resmlp    the paper's Table-4 ResMLP row on FlexASR at the repository's
              configuration: teacher task, 600 training steps, flexible
              matching, then 40 points through the ideal, ILA (compiled),
@@ -69,7 +76,7 @@ without one). Phases, one line each:
              launches counted as a path of their own ("vt3"). Gates: every
              VT1, VT2 and Table-3 verdict true, VT3 (True, 0.0) for both
              checks, each Table-2 row's error within its intrinsic's tol of
-             the same rows run on the CPU
+             the same rows run on the CPU (VecUnit's rows equal to them)
    lint      ``ilalint.lint_registry()``: the findings equal LINT_EXPECTED
              (FlexASR's five fn_start hazards and the targets' notes, which
              tests/test_torch_ilalint.py holds equal to the JAX reference's)
@@ -348,8 +355,17 @@ FLASH_BF16_STEP = 2.0 ** -7
 #: af_gemm's check at x's largest magnitude 2^k: two powers where
 #: floor(log2) is one below k (in the reference and the port), two where
 #: dividing log(x) by ln 2 gave another exponent than the reference's
-#: multiply, 2^-126 with its window below the normals (the wide quantizer)
-AF_POWERS = (13, 27, -47, -126)
+#: multiply, 2^-126 with its window below the normals (the reference's
+#: flushed powers of two: 0 / 0, NaN, for every x below its window), four
+#: whose windows lie outside [-12, 12], where the reference's exp2 is not
+#: the exact power, and two whose windows reach below 2^-126 (their lowest
+#: powers flushed to 0) with finite outputs
+AF_POWERS = (13, 27, -47, -126, -6, -20, 20, 100, -122, -124)
+#: the one af_gemm check whose outputs are NaN (in the kernel and in the
+#: plain version); every other must be finite
+AF_NAN_CASE = "x_max_2^-126"
+#: the af_exponent gate's sigma sweep (af_quantize on seeded N(0, sigma^2))
+AF_SIGMAS = (1e-6, 1e-3, 1.0, 1e3)
 #: the LM serving path: TinyLlama-1.1B, 4 prompts of 1024 tokens, 32 more
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "tinyllama_1_1b", 4, 1024, 32
 #: fp32 forward vs prefill + decode (tests/test_models.py:60); card vs CPU
@@ -483,7 +499,9 @@ CAMPAIGN_STATIC = dict(
 def af_power_case(k: int, rng, dev, spec, m: int = 64, n: int = 32, kk: int = 64) -> tuple:
     """af_gemm's arguments with x's largest magnitude exactly 2^k (one
     element, every other below it) and w scaled by 2^-k, so that each
-    product and sum is a normal float (``AF_POWERS``); the biases from
+    product and sum is a normal float (``AF_POWERS``; at 2^-126 the
+    elements below the top are subnormal, read as 0, and at 2^-122 and
+    2^-124 many of them are); the biases from
     ``af_exp_bias`` on ``dev``."""
     import numpy as np
     import torch
@@ -499,34 +517,105 @@ def af_power_case(k: int, rng, dev, spec, m: int = 64, n: int = 32, kk: int = 64
             numerics.af_exp_bias(x @ w.T + b, spec))
 
 
+def equal_nan(got, want) -> bool:
+    """``torch.equal``, with NaN equal to NaN in the same places."""
+    import torch
+
+    nan = torch.isnan(got)
+    return bool(torch.equal(nan, torch.isnan(want))
+                and torch.equal(torch.where(nan, 0.0, got), torch.where(nan, 0.0, want)))
+
+
 def af_exponent_card_vs_cpu(dev, spec) -> dict:
-    """``floor_log2`` and ``af_exp_bias`` (each value a tensor of its own)
-    on the card against the CPU at the 254 powers of two in [2^-126,
-    2^127] and one ulp each side, both signs (1524 values): the points
-    where they differ, with their inputs. The card's ``logf`` is not the
-    CPU's ``log``; a differing point is a finding, not a gate. One
-    ``af_exponent`` line."""
+    """The reference's log, exp and exp2 as the port computes them
+    (``numerics.log_f32``, ``exp_f32``, ``exp2_ref``: IEEE float32 and
+    float64 operations only) on the card against the CPU, point for point:
+    ``floor_log2`` and ``af_exp_bias`` (each value a tensor of its own) at
+    the 254 powers of two in [2^-126, 2^127] and one ulp each side, both
+    signs (1524 values), and on the +-2048-ulp band around each power
+    (1,038,590 values; ``af_exp_bias`` at every 256th); ``exp2_ref`` at
+    every integer in [-149, 127]; ``log_f32`` and ``exp_f32`` on 2^20
+    seeded bit patterns; ``af_quantize`` on seeded N(0, sigma^2) tensors
+    (``AF_SIGMAS``); and
+    VecUnit's ``EW_START``, mul and sigmoid, at every point of the int16
+    grids k * 2^ea, ea in {-13, -14, -15}. One ``af_exponent`` line; a
+    differing point fails the run."""
     import numpy as np
     import torch
 
-    from repro_torch.accel import numerics
+    from repro_torch.accel import numerics, vecunit as veu
 
     pw = np.ldexp(np.float32(1.0), np.arange(-126, 128)).astype(np.float32)
     pts = np.concatenate([pw, np.nextafter(pw, np.float32(0)),
                           np.nextafter(pw, np.float32(np.inf))])
     x = torch.from_numpy(np.concatenate([pts, -pts]))
-    out = {"points": x.numel()}
-    for name, fn in (("floor_log2", lambda v: numerics.floor_log2(v.abs())),
-                     ("af_exp_bias", lambda v: torch.cat([numerics.af_exp_bias(u, spec)[None]
-                                                          for u in v.split(1)]))):
-        card, cpu = fn(x.to(dev)).cpu(), fn(x)
-        bad = torch.nonzero(card != cpu).flatten().tolist()
-        out[name] = [(float(x[i]), float(card[i]), float(cpu[i])) for i in bad]
-    phase("af_exponent", points=out["points"], floor_log2_differ=len(out["floor_log2"]),
-          af_exp_bias_differ=len(out["af_exp_bias"]),
-          differing=";".join(f"{v!r}:{c}/{p}" for v, c, p in
-                             out["floor_log2"] + out["af_exp_bias"]) or "none",
+    p = np.arange(1, 255, dtype=np.int64) << 23
+    band = (p[:, None] + np.arange(-2048, 2049)[None, :]).ravel()
+    band = torch.from_numpy(band[(band >= 1 << 23) & (band < 0x7f800000)]
+                            .astype(np.uint32).view(np.float32))
+    rng = np.random.default_rng(28)
+    bits = torch.from_numpy(rng.integers(0, 2 ** 32, 2 ** 20, dtype=np.uint64)
+                            .astype(np.uint32).view(np.float32))
+
+    def bias_each(v):
+        return torch.cat([numerics.af_exp_bias(u, spec)[None] for u in v.split(1)])
+
+    cases = {
+        "floor_log2": (lambda v: numerics.floor_log2(v.abs()), x),
+        "af_exp_bias": (bias_each, x),
+        "band_floor_log2": (numerics.floor_log2, band),
+        # every 256th point of the band, each value a tensor of its own
+        "band_af_exp_bias": (bias_each, band[::256].contiguous()),
+        "exp2_ref": (numerics.exp2_ref, torch.arange(-149, 128, dtype=torch.float32)),
+        "log_f32": (numerics.log_f32, bits),
+        "exp_f32": (numerics.exp_f32, bits),
+    }
+    for sigma in AF_SIGMAS:
+        v = torch.from_numpy((rng.standard_normal(1 << 16) * sigma).astype(np.float32))
+        cases[f"af_quantize_{sigma:g}"] = (lambda u: numerics.af_quantize(u, spec), v)
+
+    def ew_start(mode, ea, device):
+        """EW_START over the whole grid k * 2^ea, 4096 points a state."""
+        g = np.arange(-32767, 32768, dtype=np.float64) * 2.0 ** ea
+        g = np.concatenate([g, np.zeros(-g.size % (veu.MAX_ROWS * veu.MAX_COLS))])
+        r = np.random.default_rng(-ea)
+        outs = []
+        for a in torch.from_numpy(g.astype(np.float32)).reshape(-1, veu._WORDS, veu.V):
+            b = torch.from_numpy((np.round(r.standard_normal(tuple(a.shape)) * 2 ** 13)
+                                  * 2.0 ** -14).astype(np.float32))
+            st = {"vec_a": a.to(device), "vec_b": b.to(device),
+                  "vec_out": torch.zeros_like(a, device=device),
+                  "mode": float(mode), "n_rows": float(veu.MAX_ROWS),
+                  "n_cols": float(veu.MAX_COLS), "exp_a": float(ea), "exp_b": -14.0,
+                  "exp_o": float(ea + 1) if mode == veu.MODE_MUL else -14.0}
+            outs.append(veu._ew_start(st, 0, None)["vec_out"].cpu())
+        return torch.stack(outs)
+
+    for mode, name in ((veu.MODE_MUL, "mul"), (veu.MODE_SIGMOID, "sigmoid")):
+        for ea in (-13, -14, -15):
+            cases[f"vecunit_{name}_{ea}"] = (
+                lambda d, m=mode, e=ea: ew_start(m, e, d), None)
+
+    out = {"points": {}, "differ": {}}
+    for name, (fn, v) in cases.items():
+        if v is None:
+            card, cpu = fn(dev), fn("cpu")
+        else:
+            card, cpu = fn(v.to(dev)).cpu(), fn(v)
+        nan = torch.isnan(card) & torch.isnan(cpu)
+        bad = torch.nonzero(((card != cpu) & ~nan).reshape(-1)).flatten().tolist()
+        flat = v.reshape(-1) if v is not None else None
+        out["points"][name] = card.numel()
+        out["differ"][name] = [(float(flat[i]) if flat is not None and i < flat.numel()
+                                else i, float(card.reshape(-1)[i]), float(cpu.reshape(-1)[i]))
+                               for i in bad[:20]] + ([len(bad)] if len(bad) > 20 else [])
+    n_bad = {k: len(v) for k, v in out["differ"].items() if v}
+    phase("af_exponent", points=sum(out["points"].values()),
+          **{f"{k}_differ": len(v) for k, v in out["differ"].items()},
+          differing=";".join(f"{k}:{v[:3]!r}" for k, v in out["differ"].items() if v) or "none",
           af_gemm_x_max=",".join(f"2^{k}" for k in AF_POWERS))
+    if n_bad:
+        raise AssertionError(f"af_exponent: the card differs from the CPU: {n_bad}")
     return out
 
 
@@ -2691,10 +2780,13 @@ def main() -> int:
         for name, kern, plain in cases:
             got, want = kern(), plain()
             torch.cuda.synchronize()
-            err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+            diff = (got.double() - want.double()).nan_to_num(0.0)
+            err = float(diff.abs().max()) if got.numel() else 0.0
             worst_kernel[kname] = max(worst_kernel[kname], err)
-            if not torch.equal(got, want):
+            if not equal_nan(got, want):
                 mismatched.append(f"{kname}:{name}")
+            elif name != AF_NAN_CASE and not bool(torch.isfinite(want).all()):
+                mismatched.append(f"{kname}:{name} (not finite)")
     # (B, Hq, Hkv, S, Sk, D, causal), each in bf16 and in fp32 on the same
     # values: q, k, v made (B, S, H, D) as the models hold them and passed as
     # (B, H, S, D) views
@@ -2967,12 +3059,14 @@ def main() -> int:
         "table2_cpu": [dataclasses.asdict(r) for r in t2_cpu], "table3": t3, "seconds": secs}
     vt3_ok = all(v == (True, 0.0) for cs in vt3.values() for v in cs.values()) \
         and len([v for cs in vt3.values() for v in cs.values()]) == 2
-    t2_bad = {k: v for k, v in t2_dev.items() if abs(v[0] - v[1]) > v[2]}
+    # VecUnit computes the reference's exp2 and exp: its rows equal the CPU's
+    t2_bad = {k: v for k, v in t2_dev.items()
+              if (v[0] != v[1] if k.startswith("VecUnit/") else abs(v[0] - v[1]) > v[2])}
     if not (all(vt1.values()) and all(vt2.values()) and all(r["ok"] for r in t3)
             and len(t3) == 8 and vt3_ok and not t2_bad
             and [(r.accelerator, r.operation) for r in t2] == list(table2.TABLE2_INTRINSICS)):
         raise AssertionError(f"validate: vt1 {vt1} vt2 {vt2} table3 {t3} vt3 {vt3} "
-                             f"table2 card vs cpu outside tol: {t2_bad}")
+                             f"table2 card vs cpu outside tol (VecUnit: not equal): {t2_bad}")
     if vt3_counts["af_gemm"] <= 0 or vt3_counts["int8_gemm"] <= 0:
         raise AssertionError(f"VT3 did not launch af_gemm and int8_gemm: {vt3_counts}")
 

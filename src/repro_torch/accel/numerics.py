@@ -14,32 +14,198 @@
 All quantizers are ``quantize -> dequantize`` (fake-quant), so downstream
 compute runs in fp32 on the accelerator's representable set.
 
-Two choices keep these bit-identical to the JAX reference (``repro``):
+Every logarithm and power of two here is the reference's own (``repro``
+on the CPU, where XLA compiles ``jnp.log``, ``jnp.exp`` and ``jnp.exp2``
+into Cephes's polynomials as Eigen's ``plog_float`` / ``pexp_float`` write
+them): ``log_f32``, ``exp_f32`` and ``exp2_ref`` repeat that algorithm step
+by step in float32 tensor ops, so they give its bits on the CPU and on the
+card alike. Three things of the compiled reference are part of it:
 
-* the exponent is ``floor(log(x) * INV_LN2)``, what the reference computes,
-  not an exact exponent. ``jnp.log2`` is ``log(x) / log(2)``, and XLA's
-  algebraic simplifier compiles that division by a constant into a
-  multiplication by its float32 reciprocal. The rounded product lands on
-  the power itself just below a power of two, and one below it at some
-  exact powers (2^13, 2^27, 2^-47, ...); dividing instead, or an exact
-  exponent, picks another binade there;
-* ``2^e`` is built exactly from the exponent bits (the CUDA kernel uses
-  ``ldexpf``), never through ``exp2``.
+* the multiply-adds XLA's CPU backend contracts into fused multiply-adds
+  (its object code has ``vfmadd`` exactly there) are fused here too, in
+  float64 and rounded once to float32 (``_fma``, ``_fma_log``);
+* XLA runs with denormals as zero: a subnormal input reads as 0 and a
+  subnormal result is 0 (``_flush``);
+* ``jnp.exp2(e)`` is ``exp(float32(ln 2) * e)``, exact only at some
+  integers (-14, -12..12, 14, 16, ..., 28) and 0 at e <= -126, and
+  ``jnp.log2(x)`` is ``log(x) * float32(1 / ln 2)`` (XLA compiles the
+  division by the constant ln 2 into that multiply).
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+import struct
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 Bias = Union[float, torch.Tensor]
 
-#: 1 / ln 2 in float32 (0x3fb8aa3b), the constant XLA multiplies ``log(x)``
-#: by in the reference's ``jnp.log2``; the CUDA kernel uses the same bits
-INV_LN2 = 1.44269502
+
+# --------------------------------------------------------------------------
+# The reference's log, exp and exp2 (XLA on the CPU)
+# --------------------------------------------------------------------------
+
+
+def _f32(bits: int) -> float:
+    """The float32 with these bits, as a Python float (exactly)."""
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
+#: float32(1 / ln 2) (0x3fb8aa3b): the reference's log2 multiplies log(x) by
+#: it, and it is Cephes's LOG2EF in exp
+INV_LN2 = _f32(0x3fb8aa3b)
+#: float32(ln 2) (0x3f317218): ``jnp.exp2(e)`` is ``exp(e * LN2)``
+LN2 = _f32(0x3f317218)
+#: the smallest normal float32, 2^-126
+MIN_NORMAL = 2.0 ** -126
+
+# Cephes's logf (Eigen's plog_float): mantissa in [sqrt(1/2), sqrt(2)) - 1,
+# a degree-8 polynomial, ln 2 split into Q2 + Q1
+_SQRTHF = _f32(0x3f3504f3)                    # 0.707106781186547524
+_LOG_P = tuple(_f32(b) for b in (
+    0x3d9021bb,   # p0  7.0376836292e-2
+    0xbdebd1b8,   # p1 -1.1514610310e-1
+    0x3def251a,   # p2  1.1676998740e-1
+    0xbdfe5d4f,   # p3 -1.2420140846e-1
+    0x3e11e9bf,   # p4  1.4249322787e-1
+    0xbe2aae50,   # p5 -1.6668057665e-1
+    0x3e4cceac,   # p6  2.0000714765e-1
+    0xbe7ffffc,   # p7 -2.4999993993e-1
+    0x3eaaaaaa,   # p8  3.3333331174e-1
+))
+_LN2_LO = _f32(0xb95e8083)                    # Q1 / C2 -2.12194440e-4
+_LN2_HI = _f32(0x3f318000)                    # Q2 / C1  0.693359375
+
+# Cephes's expf (Eigen's pexp_float): the input clamped as XLA clamps it,
+# n = floor(x log2(e) + 1/2) in [-127, 127], x - n ln 2 in two parts, a
+# degree-5 polynomial, times 2^n from the exponent bits
+_EXP_LO, _EXP_HI = _f32(0xc2af999a), _f32(0x42b1999a)   # -87.8, 88.8
+_EXP_P = tuple(_f32(b) for b in (
+    0x39506967,   # p0 1.9875691500e-4
+    0x3ab743ce,   # p1 1.3981999507e-3
+    0x3c088908,   # p2 8.3334519073e-3
+    0x3d2aa9c1,   # p3 4.1665795894e-2
+    0x3e2aaaaa,   # p4 1.6666665459e-1
+    0x3f000000,   # p5 0.5
+))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, a fused multiply-add. The
+    product of two float32s is exact in float64; the float64 sum is rounded
+    to odd (its error, exact by TwoSum, sets the last bit), so that rounding
+    it to float32 is the one correct rounding (53 >= 24 + 2 bits)."""
+    p = a.double() * b
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    bits = s.view(torch.int64)
+    # an inexact even sum moves one float64 ulp toward the exact value
+    step = ((err != 0) & ((bits & 1) == 0)).long() * torch.sign(err * s).long()
+    return (bits + step).view(torch.float64).float()
+
+
+def _fma_log(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``_fma`` without the round-to-odd step, for ``log_f32`` alone. The
+    two differ only where the float64 sum lies halfway between two float32s
+    and is inexact; the log's nine multiply-adds depend only on the
+    mantissa and the exponent, and over every pair none does
+    (``tests/exhaustive_log_fma.py``). A third of the ops: on an H100 the
+    plain af_gemm of a fused group of 8 takes 0.675 ms with it, 1.394 ms
+    with ``_fma``."""
+    return (a.double() * b + c).float()
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Denormals as zero: a subnormal reads as 0, as XLA's CPU code reads
+    (and writes) it."""
+    return torch.where(torch.abs(x) < MIN_NORMAL, torch.zeros_like(x), x)
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` as XLA computes it on the CPU, bit for bit: 0 (or a
+    subnormal) gives -inf, +inf gives +inf, a negative or NaN input NaN."""
+    x = _flush(x.float())
+    bits = torch.clamp(x, min=MIN_NORMAL).view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    # mantissa in [0.5, 1); below sqrt(1/2) it is doubled and e lowered
+    m = ((bits & -2139095041) | 0x3f000000).view(torch.float32)
+    low = m < _SQRTHF
+    e = e - low.float()
+    z = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    z2 = z * z
+    z3 = z2 * z
+    y = _fma_log(z, _LOG_P[0], _LOG_P[1])
+    y1 = _fma_log(z, _LOG_P[3], _LOG_P[4])
+    y2 = _fma_log(z, _LOG_P[6], _LOG_P[7])
+    y = _fma_log(y, z, _LOG_P[2])
+    y1 = _fma_log(y1, z, _LOG_P[5])
+    y2 = _fma_log(y2, z, _LOG_P[8])
+    y = _fma_log(y, z3, y1)
+    y = _fma_log(y, z3, y2)
+    y = _fma_log(y, z3, e * _LN2_LO)
+    # 0.5 z^2 and e Q2 are exact, so their fused forms round as these do
+    r = (z - 0.5 * z2) + y
+    r = r + e * _LN2_HI
+    r = torch.where((x < 0) | torch.isnan(x), torch.full_like(r, float("nan")), r)
+    r = torch.where(x == float("inf"), x, r)
+    return torch.where(x == 0, torch.full_like(r, float("-inf")), r)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.exp`` as XLA computes it on the CPU, bit for bit: results
+    below 2^-126 are 0, and inputs beyond [-87.8, 88.8] clamp there."""
+    x = torch.clamp(x.float(), _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(_fma(x, INV_LN2, 0.5)), -127.0, 127.0)
+    # n C1 is exact, so its fused form rounds as this does
+    r = x - n * _LN2_HI
+    r = _fma(n, -_LN2_LO, r)
+    y = _fma(r, _EXP_P[0], _EXP_P[1])
+    for p in _EXP_P[2:]:
+        y = _fma(y, r, p)
+    y = _fma(y, r * r, r)
+    y = y + 1.0
+    # 2^n from the exponent bits (n = -127 gives the bits of 0)
+    y = y * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return _flush(y)
+
+
+def exp2_ref(e) -> torch.Tensor:
+    """``jnp.exp2(e)`` as XLA computes it: ``exp_f32(e * LN2)``, the product
+    rounded to float32. Not always the exact power: 0 at e <= -126, and an
+    ulp or more off at most integers outside [-12, 12]."""
+    return exp_f32(torch.as_tensor(e, dtype=torch.float32) * LN2)
+
+
+#: exp2_ref is constant at integers below -127 and above 129 (its input
+#: clamps to [-87.8, 88.8]), so a table of [-127, 129] covers every integer;
+#: one more entry, NaN, is exp2_ref(NaN)
+_EXP2_LO, _EXP2_HI = -127, 129
+_EXP2_TABLES: Dict[torch.device, torch.Tensor] = {}
+
+
+def exp2_ref_int(e: torch.Tensor) -> torch.Tensor:
+    """``exp2_ref(e)`` for integer-valued ``e`` (an exponent: AdaptivFloat's
+    window, VecUnit's grid, VTA's shift), read from a table that
+    ``exp2_ref`` fills once per device: the same bits in a few tensor ops."""
+    table = _EXP2_TABLES.get(e.device)
+    if table is None:
+        table = exp2_ref(torch.arange(_EXP2_LO, _EXP2_HI + 1, dtype=torch.float32,
+                                      device=e.device))
+        table = torch.cat([table, table.new_full((1,), float("nan"))])
+        _EXP2_TABLES[e.device] = table
+    i = torch.nan_to_num(torch.clamp(e, _EXP2_LO, _EXP2_HI) - _EXP2_LO, nan=table.numel() - 1)
+    # take, not indexing: a 0-d index would read its value back to the host
+    return torch.take(table, i.long())
+
+
+def floor_log2(x: torch.Tensor) -> torch.Tensor:
+    """The reference's exponent ``floor(jnp.log2(x))``: ``floor(log_f32(x) *
+    INV_LN2)``, the product rounded to float32."""
+    return torch.floor(log_f32(x) * INV_LN2)
 
 
 # --------------------------------------------------------------------------
@@ -57,27 +223,17 @@ class AdaptivFloatSpec:
         return self.n_bits - 1 - self.n_exp
 
 
-def floor_log2(x: torch.Tensor) -> torch.Tensor:
-    """``floor(log(x) * INV_LN2)`` in float32, the reference's exponent: the
-    reference divides by log 2, and XLA compiles that into a multiply by
-    the float32 reciprocal of ln 2."""
-    inv_ln2 = torch.full((), INV_LN2, dtype=torch.float32, device=x.device)
-    return torch.floor(torch.log(x) * inv_ln2)
-
-
-def exp2_int(e: torch.Tensor) -> torch.Tensor:
-    """Exact ``2^e`` for integer-valued float ``e`` (down to 2^-149),
-    assembled from exponent bits: two factors so subnormals stay exact."""
-    ei = e.to(torch.int32)
-    e1 = ei.clamp(-126, 127)
-    e2 = (ei - e1).clamp(-126, 0)
-    return ((e1 + 127) << 23).view(torch.float32) * ((e2 + 127) << 23).view(torch.float32)
-
-
 def af_exp_bias(x: torch.Tensor, spec: AdaptivFloatSpec) -> torch.Tensor:
     """Per-tensor exponent bias: align the max representable exponent with
     the tensor's max magnitude (AdaptivFloat Algorithm 1)."""
-    amax = torch.max(torch.abs(x.float()))
+    return af_exp_biases([x], spec)[0]
+
+
+def af_exp_biases(xs: Sequence[torch.Tensor], spec: AdaptivFloatSpec) -> torch.Tensor:
+    """``af_exp_bias`` of each tensor (all on one device), stacked: one
+    ``floor_log2`` for all of them, the same bits in a third of the tensor
+    ops for three."""
+    amax = _flush(torch.stack([torch.max(torch.abs(x.float())) for x in xs]))
     amax = torch.where(amax == 0, torch.ones_like(amax), amax)
     return floor_log2(amax) - (2 ** spec.n_exp - 1)
 
@@ -85,13 +241,14 @@ def af_exp_bias(x: torch.Tensor, spec: AdaptivFloatSpec) -> torch.Tensor:
 def af_quantize(
     x: torch.Tensor, spec: AdaptivFloatSpec = AdaptivFloatSpec(), exp_bias: Optional[Bias] = None
 ) -> torch.Tensor:
-    """Round ``x`` to the nearest AdaptivFloat-representable value.
+    """Round ``x`` to the nearest AdaptivFloat-representable value, as the
+    reference's ``af_quantize`` does, operation for operation.
 
-    ``exp_bias`` is a number or a tensor that broadcasts against ``x`` (a
-    batch of per-sample biases shaped ``(B, 1, ...)``)."""
+    ``exp_bias`` is an integer, as a number or a tensor that broadcasts
+    against ``x`` (a batch of per-sample biases shaped ``(B, 1, ...)``)."""
     if exp_bias is None:
         exp_bias = af_exp_bias(x, spec)
-    xf = x.float()
+    xf = _flush(x.float())
     e_lo = torch.as_tensor(exp_bias, dtype=torch.float32, device=x.device)
     e_hi = e_lo + (2 ** spec.n_exp - 1)
     m = spec.n_man
@@ -101,7 +258,7 @@ def af_quantize(
     # exponent of each value, clamped into the representable window
     safe = torch.where(ax > 0, ax, torch.ones_like(ax))
     e = torch.clamp(floor_log2(safe), e_lo, e_hi)
-    scale = exp2_int(e)
+    scale = exp2_ref_int(e)
     # mantissa in [1, 2): round to m bits
     man = torch.clamp(ax / scale, 1.0, top)
     man_q = torch.round(man * 2.0 ** m) / 2.0 ** m
@@ -109,12 +266,12 @@ def af_quantize(
     bump = man_q >= 2.0
     e2 = torch.clamp(e + bump.float(), e_lo, e_hi)
     man_q = torch.where(bump & (e2 > e), torch.ones_like(man_q), torch.clamp(man_q, max=top))
-    q = man_q * exp2_int(e2)
+    q = man_q * exp2_ref_int(e2)
     # saturate above the max normal; flush-to-zero below half the min normal
-    vmax = top * exp2_int(e_hi)
-    vmin = exp2_int(e_lo)
+    vmax = top * exp2_ref_int(e_hi)
+    vmin = exp2_ref_int(e_lo)
     q = torch.minimum(q, vmax)
-    q = torch.where(ax < vmin * 0.5, torch.zeros_like(q), q)
+    q = torch.where(ax < _flush(vmin * 0.5), torch.zeros_like(q), q)
     return (sign * q).to(x.dtype)
 
 

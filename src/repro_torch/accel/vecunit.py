@@ -23,11 +23,10 @@ Everything the compiler, executor and validation layers need is declared
 through :mod:`repro_torch.accel.target` and registered at the bottom of this
 file — no ``repro_torch/core`` module mentions this backend.
 
-The grid scale 2^e is built exactly (``numerics.exp2_int``). The reference
-uses ``jnp.exp2``, which on the CPU backend is off by an ulp for the
-exponents the driver picks here (about -13 to -15), and its sigmoid rounds
-differently from PyTorch's; the port is therefore held to the reference at
-each intrinsic's ``tol``, not bit for bit.
+The grid scale is the reference's ``jnp.exp2(e)`` (``numerics.exp2_ref_int``:
+an ulp off 2^e at the exponents the fragment builders pick, about -13 to -15) and the
+sigmoid its ``1 / (1 + jnp.exp(-a))`` (``numerics.exp_f32``), so the port
+gives the reference's bits.
 """
 from __future__ import annotations
 
@@ -121,7 +120,7 @@ vecunit.instruction("cfg_num", CFG_NUM)(_cfg(["exp_a", "exp_b", "exp_o"]))
 def _q16(x, exp, dev):
     """int16 block fixed point: round onto the 2^exp grid, saturate. ``exp``
     is a number or a per-stream tensor shaped to broadcast against x."""
-    scale = numerics.exp2_int(torch.as_tensor(exp, dtype=torch.float32, device=dev))
+    scale = numerics.exp2_ref_int(torch.as_tensor(exp, dtype=torch.float32, device=dev))
     return torch.clamp(torch.round(x / scale), -QMAX, QMAX) * scale
 
 
@@ -135,7 +134,7 @@ def _mask1(n, size, dev):
 
 _EW_FNS = [
     lambda ab: ab[0] * ab[1],
-    lambda ab: 1.0 / (1.0 + torch.exp(-ab[0])),
+    lambda ab: 1.0 / (1.0 + numerics.exp_f32(-ab[0])),
 ]
 
 
@@ -330,7 +329,8 @@ def _ideal_mul(attrs, args):
 
 
 def _ideal_sigmoid(attrs, args):
-    return 1.0 / (1.0 + torch.exp(-args[0]))
+    # the IR's own sigmoid: VT2 holds the two bit for bit
+    return ir._sigmoid(args[0])
 
 
 def _sample_mul(r):

@@ -152,8 +152,8 @@ def _gemm(st, addr, data):
 _ALU_OPS = [
     lambda ab: ab[0] + ab[1],
     lambda ab: torch.maximum(ab[0], ab[1]),
-    # arithmetic >>: floor(a / 2^b), with 2^b built exactly
-    lambda ab: torch.floor(ab[0] / numerics.exp2_int(ab[1])),
+    # arithmetic >>: floor(a / 2^b), 2^b as the reference's jnp.exp2 (b an integer)
+    lambda ab: torch.floor(ab[0] / numerics.exp2_ref_int(ab[1])),
     lambda ab: torch.minimum(ab[0], ab[1]),
 ]
 

@@ -25,7 +25,7 @@
 //    during this tile's FMAs); each thread owns 2x2 outputs and per k reads
 //    one 8-byte pair of x (the same for a warp's lanes) and one of w
 //    (consecutive across lanes), a shared-memory wavefront each for four
-//    FMAs per lane; then b[n] and the output quantizer on its 4 outputs at
+//    float64 FMAs per lane; then b[n] and the output quantizer on its 4 outputs at
 //    once. The tile is 32x32 where that gives at least 132 blocks (a fused
 //    group: 256 blocks at B = 8), else 16x16, else 8x8 (kernel mode: 16,
 //    32, 16 and 2 blocks for ResMLP's tok, fc1, fc2 and head).
@@ -35,40 +35,56 @@
 // whole pass either way, and the stream orders two launches with nothing
 // co-resident to guarantee; a CUDA graph replays them back to back.
 //
-// Sum order. Each output is acc = 0, then fmaf(xq[k], wq[k], acc) for k
-// ascending, then + b[n], then the quantizer: the order under which this
-// kernel has equalled the plain version (a cuBLAS fp32 sum) bit for bit on
-// every checked point. Hence no split-K and no mma/wgmma: the tensor
-// cores' fp32 accumulation is not a sequential IEEE sum. Nor would they
-// pay: a fused B = 8 group is 67 MFLOP over 1.70 MB, 39 FLOP per byte, far
+// Sum order. Each output is acc = 0, then fma(xq[k], wq[k], acc) in float64
+// for k ascending, then + b[n] in float64, one rounding to fp32, then the
+// quantizer; the plain version is a float64 GEMM (cuBLAS's order) with the
+// same bias add and rounding. A product of two fp32 values is exact in
+// float64. Where every power of the windows is exact (the reference's exp2
+// is 2^e at -14 and -12..12), a quantized value carries 5 significant bits,
+// so each product 10 and a sum of K of them spans at most 16 binades + 10
+// + log2 K bits: exact in float64 in any order, the same bits as the plain
+// version by construction. Elsewhere a quantized value is 5 bits times an
+// exp2 an ulp or more off 2^e, 24 bits, and no order is exact: the float64
+// sums of the two orders round to one fp32 value unless the sum lies
+// within a few float64 ulps (2^-29 of an fp32 ulp) of an fp32 rounding
+// boundary, which the card checks at every shape and magnitude have not
+// met. fp32 sums (the reference's Pallas kernel sums in fp32) did give
+// another output in the two orders at such a window (100 x 50 x 200,
+// inputs at 1e-6), so this is a departure from the reference's precision,
+// held against it in ROADMAP Queue 3. No split-K and no mma/wgmma. Nor would they pay:
+// a fused B = 8 group is 67 MFLOP over 1.70 MB, 39 FLOP per byte, far
 // below the ~295 at which the bf16 tensor cores and not the memory bound
-// an H100; at the 67 TFLOP/s fp32 rate its products take 1.0 us.
+// an H100; at the 34 TFLOP/s fp64 rate its products take 2.0 us.
 //
-// The quantizer mirrors the plain version (repro_torch/accel/numerics.py)
-// operation for operation: exponent floor(logf(x) * (1 / ln 2)) (the
-// reference's log2 is log(x) / log(2), which XLA compiles into a multiply
-// by the float32 reciprocal), rintf (round half to even), the exponent
-// clamp, the mantissa clamp and its bump to 2.0, saturation at the top and
-// the flush below vmin / 2. Every other division by a power of two and
-// every ldexpf is a multiplication by an exact power of two built from
-// exponent bits: both are the correctly rounded value of the same real
-// number whenever the power is a normal float, which holds for every
-// exponent of a window inside [-126, 126]. A window outside that range
-// (bias below -126 or above 119 at n_exp = 3, far from any tensor the
-// system quantizes) takes the wide quantizer (ldexpf and divisions), so
-// every bias gives the plain version's bits and none is refused: refusing
-// would need the device-held biases on the host, a synchronisation per
-// call.
+// The quantizer is the plain version's (repro_torch/accel/numerics.py::
+// af_quantize), which is the reference's as XLA compiles it for the CPU,
+// operation for operation: the exponent floor(log_f32(x) * float32(1 / ln
+// 2)), every power of two exp2_ref(e) = exp_f32(float32(ln 2) * e) (an ulp
+// or more off 2^e at most e outside [-12, 12], 0 at e <= -126), the
+// mantissa ax / exp2_ref(e) (an IEEE division, as the plain version
+// divides), rintf (round half to even), the exponent clamp, the mantissa
+// clamp and its bump to 2.0, saturation at the top and the flush below
+// vmin / 2, with denormals read and written as zero and NaN carried
+// through every clamp and minimum as torch carries it. A window's 2^n_exp
+// powers, vmax and flush point are computed once per block into shared
+// memory (Window), as the plain version reads them from a table of
+// exp2_ref at the integers. log_f32 and exp_f32 are Cephes's polynomials
+// as XLA's CPU code evaluates them: __fmaf_rn exactly where that code
+// fuses a multiply-add, __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn
+// everywhere else, so that -fmad=true (which the product loop keeps)
+// contracts nothing else. No logf, expf, exp2f or ldexpf: IEEE operations
+// round alike on the card and on the CPU.
 //
 // Bound: a fused B = 8 group reads 0.52 MB of x, 0.13 MB of w and writes
 // 1.05 MB of output; 1.70 MB at 3.35 TB/s is 0.51 us, and the bytes bound
 // it (the products take 0.07 us on the bf16 tensor cores, where AF(8,3)
 // values are exact). What sets the pace is latency and instruction count:
-// a quantization is ~60 dependent instructions (logf, one multiply), so it
-// runs once per element across the whole card with 4 independent elements
-// per thread, and the product runs one 8-byte shared load per two FMAs
-// over 4 outputs per thread and at least 132 blocks. Each of the two
-// launches then costs about what a launch of a small kernel costs.
+// a quantization is ~80 dependent instructions (the log polynomial and a
+// division), so it runs once per element across the whole card with 4
+// independent elements per thread, and the product runs one 8-byte shared
+// load per two FMAs over 4 outputs per thread and at least 132 blocks.
+// Each of the two launches then costs about what a launch of a small
+// kernel costs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,85 +95,141 @@ constexpr int QT = 32;                 // quantize pass: QT x QT tiles,
 constexpr int QTHREADS = QT * QT / 4;  // 4 elements per thread
 constexpr int BK = 32;         // product: K rows staged per cp.async stage
 constexpr int STAGES = 2;      // product: cp.async ring depth
-// float32 nearest to 1 / ln 2 (0x3fb8aa3b), the constant the plain version
-// and the reference's compiled log2 multiply by; from its bits, so that no
-// decimal literal can round to another float
-__device__ __forceinline__ float inv_ln2f() { return __int_as_float(0x3fb8aa3b); }
-
+constexpr int MAX_N_EXP = 5;   // exponent field bits (kernels/af_gemm.py checks)
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
+  return v != v ? v : fminf(fmaxf(v, lo), hi);  // NaN stays NaN, as in torch.clamp
 }
-
+__device__ __forceinline__ float minf(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);  // NaN wins, as in torch.minimum
+}
+// denormals as zero, as XLA's CPU code reads and writes them
+__device__ __forceinline__ float flush(float x) { return fabsf(x) < 0x1p-126f ? 0.0f : x; }
 // 2^n for n in [-126, 127], from the exponent bits
 __device__ __forceinline__ float pow2i(int n) { return __int_as_float((n + 127) << 23); }
 
-// The wide quantizer: ldexpf and IEEE divisions, exact for every window.
-__device__ float af_quant_wide(float x, float e_lo, int n_exp, int n_man) {
-  const float e_hi = e_lo + (float)((1 << n_exp) - 1);
-  const float top = 2.0f - ldexpf(1.0f, -n_man);
-  const float p = ldexpf(1.0f, n_man);
-  const float sign = (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
-  const float ax = fabsf(x);
-  const float safe = ax > 0.0f ? ax : 1.0f;
-  const float e = clampf(floorf(logf(safe) * inv_ln2f()), e_lo, e_hi);
-  const float man = clampf(ax / ldexpf(1.0f, (int)e), 1.0f, top);
-  float man_q = rintf(man * p) / p;
-  const bool bump = man_q >= 2.0f;
-  const float e2 = clampf(e + (bump ? 1.0f : 0.0f), e_lo, e_hi);
-  man_q = (bump && e2 > e) ? 1.0f : fminf(man_q, top);
-  float q = man_q * ldexpf(1.0f, (int)e2);
-  q = fminf(q, top * ldexpf(1.0f, (int)e_hi));
-  if (ax < ldexpf(1.0f, (int)e_lo) * 0.5f) q = 0.0f;
-  return sign * q;
+// Cephes's constants as Eigen's plog_float / pexp_float hold them (numerics.py
+// names each), from their bits
+#define F32(b) __int_as_float(b)
+#define LOG_P0 0x3d9021bb
+#define LOG_P1 0xbdebd1b8
+#define LOG_P2 0x3def251a
+#define LOG_P3 0xbdfe5d4f
+#define LOG_P4 0x3e11e9bf
+#define LOG_P5 0xbe2aae50
+#define LOG_P6 0x3e4cceac
+#define LOG_P7 0xbe7ffffc
+#define LOG_P8 0x3eaaaaaa
+#define EXP_P0 0x39506967
+#define EXP_P1 0x3ab743ce
+#define EXP_P2 0x3c088908
+#define EXP_P3 0x3d2aa9c1
+#define EXP_P4 0x3e2aaaaa
+#define SQRTHF 0x3f3504f3
+#define LN2_LO 0xb95e8083
+#define LN2_HI 0x3f318000
+#define INV_LN2 0x3fb8aa3b
+#define LN2 0x3f317218
+#define EXP_LO 0xc2af999a  // -87.8
+#define EXP_HI 0x42b1999a  // 88.8
+
+// numerics.log_f32: XLA's CPU log
+__device__ float log_f32(float x) {
+  x = flush(x);
+  const int bits = __float_as_int(fmaxf(x, 0x1p-126f));
+  float e = __fadd_rn((float)((bits >> 23) - 127), 1.0f);
+  const float m = __int_as_float((bits & 0x807fffff) | 0x3f000000);  // [0.5, 1)
+  const bool low = m < F32(SQRTHF);
+  e = __fsub_rn(e, low ? 1.0f : 0.0f);
+  const float z = __fadd_rn(__fsub_rn(m, 1.0f), low ? m : 0.0f);
+  const float z2 = __fmul_rn(z, z), z3 = __fmul_rn(z2, z);
+  float y = __fmaf_rn(z, F32(LOG_P0), F32(LOG_P1));
+  float y1 = __fmaf_rn(z, F32(LOG_P3), F32(LOG_P4));
+  float y2 = __fmaf_rn(z, F32(LOG_P6), F32(LOG_P7));
+  y = __fmaf_rn(y, z, F32(LOG_P2));
+  y1 = __fmaf_rn(y1, z, F32(LOG_P5));
+  y2 = __fmaf_rn(y2, z, F32(LOG_P8));
+  y = __fmaf_rn(y, z3, y1);
+  y = __fmaf_rn(y, z3, y2);
+  y = __fmaf_rn(y, z3, __fmul_rn(e, F32(LN2_LO)));
+  float r = __fadd_rn(__fsub_rn(z, __fmul_rn(0.5f, z2)), y);
+  r = __fadd_rn(r, __fmul_rn(e, F32(LN2_HI)));
+  if (x < 0.0f || x != x) r = __int_as_float(0x7fc00000);
+  if (x == __int_as_float(0x7f800000)) r = x;
+  if (x == 0.0f) r = __int_as_float(0xff800000);
+  return r;
 }
 
-// One exponent window's constants, computed once per thread.
+// numerics.exp_f32: XLA's CPU exp
+__device__ float exp_f32(float x) {
+  x = clampf(x, F32(EXP_LO), F32(EXP_HI));
+  const float n = clampf(floorf(__fmaf_rn(x, F32(INV_LN2), 0.5f)), -127.0f, 127.0f);
+  float r = __fsub_rn(x, __fmul_rn(n, F32(LN2_HI)));
+  r = __fmaf_rn(n, -F32(LN2_LO), r);
+  float y = __fmaf_rn(r, F32(EXP_P0), F32(EXP_P1));
+  y = __fmaf_rn(y, r, F32(EXP_P2));
+  y = __fmaf_rn(y, r, F32(EXP_P3));
+  y = __fmaf_rn(y, r, F32(EXP_P4));
+  y = __fmaf_rn(y, r, 0.5f);
+  y = __fmaf_rn(y, __fmul_rn(r, r), r);
+  y = __fadd_rn(y, 1.0f);
+  return flush(__fmul_rn(y, __int_as_float(((int)n + 127) << 23)));
+}
+
+// numerics.exp2_ref: jnp.exp2 as XLA computes it
+__device__ __forceinline__ float exp2_ref(float e) { return exp_f32(__fmul_rn(e, F32(LN2))); }
+
+// One exponent window's constants, computed once per block in shared
+// memory: its 2^n_exp powers exp2_ref(e_lo + i), the plain version's table
+// (numerics.exp2_ref_int) at the window's exponents, and what comes of them.
 struct Window {
-  float e_lo, e_hi, top, p, inv_p, vmax, flush;
-  int n_exp, n_man;
-  bool normal;  // 2^e and 2^-e are normal floats for every e in the window
+  float scale[1 << MAX_N_EXP];
+  float e_lo, e_hi, last, top, p, inv_p, vmax, flush;
 };
 
-__device__ __forceinline__ Window af_window(float e_lo, int n_exp, int n_man) {
-  Window w;
-  w.e_lo = e_lo;
-  w.e_hi = e_lo + (float)((1 << n_exp) - 1);
-  w.top = 2.0f - ldexpf(1.0f, -n_man);
-  w.p = ldexpf(1.0f, n_man);
-  w.inv_p = ldexpf(1.0f, -n_man);
-  w.vmax = w.top * ldexpf(1.0f, (int)w.e_hi);
-  w.flush = ldexpf(1.0f, (int)e_lo) * 0.5f;
-  w.n_exp = n_exp;
-  w.n_man = n_man;
-  w.normal = e_lo >= -126.0f && w.e_hi <= 126.0f;
-  return w;
+// Every thread of the block calls it; the powers are spread over the threads.
+__device__ void af_window(Window& w, float e_lo, int n_exp, int n_man) {
+  const int last = (1 << n_exp) - 1;
+  for (int i = threadIdx.x; i <= last; i += blockDim.x) {
+    const float s = exp2_ref(__fadd_rn(e_lo, (float)i));
+    w.scale[i] = s;
+    if (i == 0) w.flush = flush(__fmul_rn(s, 0.5f));
+    if (i == last) w.vmax = __fmul_rn(__fsub_rn(2.0f, pow2i(-n_man)), s);
+  }
+  if (threadIdx.x == 0) {
+    w.e_lo = e_lo;
+    w.e_hi = __fadd_rn(e_lo, (float)last);
+    w.last = (float)last;
+    w.top = __fsub_rn(2.0f, pow2i(-n_man));
+    w.p = pow2i(n_man);
+    w.inv_p = pow2i(-n_man);
+  }
+  __syncthreads();
 }
 
-// af_quant_wide with its powers of two as multiplications (w.normal only)
-__device__ __forceinline__ float af_quant_fast(float x, const Window& w) {
+// exp2_ref(e) for e in [e_lo, e_hi], from the window's table (a NaN or an
+// infinite window reads its first entry: every entry is then the same)
+__device__ __forceinline__ float power(const Window& w, float e) {
+  return w.scale[(int)fminf(fmaxf(__fsub_rn(e, w.e_lo), 0.0f), w.last)];
+}
+
+__device__ float af_quant(float x, const Window& w) {
+  x = flush(x);
   const float sign = (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
   const float ax = fabsf(x);
   const float safe = ax > 0.0f ? ax : 1.0f;
-  const float e = clampf(floorf(logf(safe) * inv_ln2f()), w.e_lo, w.e_hi);
-  const float man = clampf(ax * pow2i(-(int)e), 1.0f, w.top);
-  float man_q = rintf(man * w.p) * w.inv_p;
+  const float e = clampf(floorf(__fmul_rn(log_f32(safe), F32(INV_LN2))), w.e_lo, w.e_hi);
+  const float man = clampf(__fdiv_rn(ax, power(w, e)), 1.0f, w.top);
+  float man_q = __fmul_rn(rintf(__fmul_rn(man, w.p)), w.inv_p);
   const bool bump = man_q >= 2.0f;
-  const float e2 = clampf(e + (bump ? 1.0f : 0.0f), w.e_lo, w.e_hi);
-  man_q = (bump && e2 > e) ? 1.0f : fminf(man_q, w.top);
-  float q = man_q * pow2i((int)e2);
-  q = fminf(q, w.vmax);
+  const float e2 = clampf(__fadd_rn(e, bump ? 1.0f : 0.0f), w.e_lo, w.e_hi);
+  man_q = (bump && e2 > e) ? 1.0f : minf(man_q, w.top);
+  float q = minf(__fmul_rn(man_q, power(w, e2)), w.vmax);
   if (ax < w.flush) q = 0.0f;
-  return sign * q;
+  return __fmul_rn(sign, q);
 }
 
 __device__ __forceinline__ float4 af_quant4(float4 v, const Window& w) {
-  if (w.normal)
-    return make_float4(af_quant_fast(v.x, w), af_quant_fast(v.y, w),
-                       af_quant_fast(v.z, w), af_quant_fast(v.w, w));
-  return make_float4(af_quant_wide(v.x, w.e_lo, w.n_exp, w.n_man),
-                     af_quant_wide(v.y, w.e_lo, w.n_exp, w.n_man),
-                     af_quant_wide(v.z, w.e_lo, w.n_exp, w.n_man),
-                     af_quant_wide(v.w, w.e_lo, w.n_exp, w.n_man));
+  return make_float4(af_quant(v.x, w), af_quant(v.y, w), af_quant(v.z, w), af_quant(v.w, w));
 }
 
 // One operand of the quantize pass: rows of K in src (batch stride src_bs,
@@ -192,7 +264,8 @@ af_quant_kernel(Operand a, Operand b, int K, int n_exp, int n_man, bool vec) {
   t /= tk;
   const int r0 = (t % tr) * QT;
   const int z = t / tr;
-  const Window win = af_window(o.bias[z * o.bias_bs], n_exp, n_man);
+  __shared__ Window win;
+  af_window(win, o.bias[z * o.bias_bs], n_exp, n_man);
   {
     const int r = threadIdx.x / (QT / 4), c = 4 * (threadIdx.x % (QT / 4));
     const int row = r0 + r, k = k0 + c;
@@ -257,6 +330,8 @@ af_product_kernel(const float* __restrict__ xq, const float* __restrict__ wq,
   wq += z * wq_bs;
   b += z * b_bs;
   out += (long long)z * M * N;
+  __shared__ Window win;  // the output's, ready before the loop's first sync
+  af_window(win, bo[z * bo_bs], n_exp, n_man);
 
   // chunk t (rows t*BK.. of K) into ring stage t % STAGES, zero past the edges
   auto load = [&](int t) {
@@ -273,7 +348,7 @@ af_product_kernel(const float* __restrict__ xq, const float* __restrict__ wq,
     }
   };
 
-  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  double acc[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
   const int nk = (K + BK - 1) / BK;
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) {
@@ -290,20 +365,23 @@ af_product_kernel(const float* __restrict__ xq, const float* __restrict__ wq,
     for (int k = 0; k < BK; ++k) {
       const float2 a = *reinterpret_cast<const float2*>(&xs[s][k][2 * ty]);
       const float2 w2 = *reinterpret_cast<const float2*>(&ws[s][k][2 * tx]);
-      acc[0][0] = fmaf(a.x, w2.x, acc[0][0]);
-      acc[0][1] = fmaf(a.x, w2.y, acc[0][1]);
-      acc[1][0] = fmaf(a.y, w2.x, acc[1][0]);
-      acc[1][1] = fmaf(a.y, w2.y, acc[1][1]);
+      const double ax = a.x, ay = a.y, wx = w2.x, wy = w2.y;
+      acc[0][0] = fma(ax, wx, acc[0][0]);
+      acc[0][1] = fma(ax, wy, acc[0][1]);
+      acc[1][0] = fma(ay, wx, acc[1][0]);
+      acc[1][1] = fma(ay, wy, acc[1][1]);
     }
   }
   cp_async_wait<0>();
 
   // + b[n], then the output quantizer on the 4 outputs at once
   const int m = m0 + 2 * ty, n = n0 + 2 * tx;
-  const float b0 = n < N ? b[n] : 0.0f, b1 = n + 1 < N ? b[n + 1] : 0.0f;
-  const float4 y = af_quant4(make_float4(acc[0][0] + b0, acc[0][1] + b1, acc[1][0] + b0,
-                                         acc[1][1] + b1),
-                             af_window(bo[z * bo_bs], n_exp, n_man));
+  const double b0 = n < N ? b[n] : 0.0f, b1 = n + 1 < N ? b[n + 1] : 0.0f;
+  const float4 y = af_quant4(make_float4(__double2float_rn(__dadd_rn(acc[0][0], b0)),
+                                         __double2float_rn(__dadd_rn(acc[0][1], b1)),
+                                         __double2float_rn(__dadd_rn(acc[1][0], b0)),
+                                         __double2float_rn(__dadd_rn(acc[1][1], b1))),
+                             win);
   if (m < M) {
     if (n < N) out[(long long)m * N + n] = y.x;
     if (n + 1 < N) out[(long long)m * N + n + 1] = y.y;

@@ -22,6 +22,8 @@ from . import build, ref
 _SPEC = AdaptivFloatSpec(8, 3)
 #: CUDA launches per call on the card: the quantize pass, then the product
 CUDA_LAUNCHES = 2
+#: the widest exponent field whose window (2^n_exp powers) the kernel holds
+MAX_N_EXP = 5
 _ARGTYPES = (
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
     + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -78,6 +80,8 @@ def af_gemm(
         return ref.af_gemm_ref(x, w, b, exp_bias_x, exp_bias_w, exp_bias_o, spec)
     if x.device.type != "cuda":
         raise ValueError(f"af_gemm: no kernel for device {x.device}")
+    if spec.n_exp > MAX_N_EXP:
+        raise ValueError(f"af_gemm: n_exp {spec.n_exp} > {MAX_N_EXP}, the kernel's window")
     dev = x.device
     _check("x", x, dev, (2, 3))
     _check("w", w, dev, (2, 3))

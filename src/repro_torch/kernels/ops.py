@@ -38,8 +38,6 @@ def af_linear(
 ) -> torch.Tensor:
     """FlexASR linear-layer semantics through ``af_gemm``; auto exponent
     biases (the output window sized from the ideal fp32 product)."""
-    bx = numerics.af_exp_bias(x, spec)
-    bw = numerics.af_exp_bias(w, spec)
     ideal = x @ w.mT + b.unsqueeze(0)
-    bo = numerics.af_exp_bias(ideal, spec)
+    bx, bw, bo = numerics.af_exp_biases([x, w, ideal], spec)
     return af_gemm(x, w, b, bx, bw, bo, spec=spec)

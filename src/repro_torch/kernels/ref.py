@@ -75,12 +75,15 @@ def af_gemm_ref(
     Biases are numbers, 0-d tensors or per-sample ``(B,)`` tensors. A
     per-sample weight bias on a shared (N, K) weight quantizes one copy of
     the weight per sample, each with its sample's bias, as the kernel does.
+    The product and the bias add run in float64, rounded once to fp32.
     """
     if w.dim() == 2 and torch.as_tensor(exp_bias_w).dim() == 1:
         w = w.expand(len(exp_bias_w), *w.shape)
     xq = numerics.af_quantize(x, spec, exp_bias=_bias(exp_bias_x, x))
     wq = numerics.af_quantize(w, spec, exp_bias=_bias(exp_bias_w, w))
-    y = xq @ wq.mT + b.unsqueeze(-2)
+    # float64 sums of exact products, rounded once to fp32 (csrc/af_gemm.cu
+    # "Sum order": exact, so in any order, wherever the windows' powers are)
+    y = (xq.double() @ wq.double().mT + b.double().unsqueeze(-2)).float()
     return numerics.af_quantize(y, spec, exp_bias=_bias(exp_bias_o, y))
 
 

@@ -4,14 +4,15 @@ The CUDA kernels (``csrc/af_gemm.cu``, ``csrc/fx_gemm.cu``) run only on the
 card; these tests hold, on the CPU, the two claims that make them equal
 their plain versions bit for bit:
 
-* af_gemm's quantizer multiplies by powers of two built from exponent bits
-  where the plain version divides by them or calls ``ldexpf``. Written here
-  in torch exactly as the kernel writes it, it equals
-  ``accel/numerics.py::af_quantize`` bitwise on 2^20 float32 inputs spread
-  over every bias of the kernel's fast window range ([-126, 119] at
-  n_exp = 3; other windows take the kernel's wide quantizer, which divides
-  as the plain version does), and on the boundary
-  set of ``tests/test_torch_numerics.py`` (powers of two and the floats just
+* af_gemm's quantizer reads each power of two from a table of its
+  window's 2^n_exp powers, ``exp2_ref(e_lo + i)``, filled once per block,
+  where the plain version reads ``exp2_ref_int``'s table, and divides the
+  magnitude by it as the plain version does. Written here in torch exactly
+  as the kernel writes it, it equals ``accel/numerics.py::af_quantize``
+  bitwise on 2^20 float32 inputs spread over every bias from -135 to 120
+  (windows from all below the normals to the top binade: NaN where the
+  reference's flushed powers divide 0 by 0), and on the boundary set of
+  ``tests/test_torch_numerics.py`` (powers of two and the floats just
   below them, lattice midpoints, vmin/2, the saturation edge, 4.5). The
   kernel keeps its scratch in fp32, so no bf16 round trip is involved.
 * fx_gemm splits each 16-bit lattice integer into a signed high byte and
@@ -30,45 +31,60 @@ from repro_torch.accel import numerics as tn
 from repro_torch.kernels import fx_gemm as kfx, ref
 
 SPEC = tn.AdaptivFloatSpec(8, 3)
-#: the biases whose whole window keeps 2^e and 2^-e normal (csrc/af_gemm.cu)
-FAST_BIASES = range(-126, 126 - (2 ** SPEC.n_exp - 1) + 1)
+#: every bias whose window meets the float32 range, and two below it
+BIASES = range(-135, 128 - (2 ** SPEC.n_exp - 1) + 1)
 
 
-def _pow2(n: torch.Tensor) -> torch.Tensor:
-    """2^n for int32 n in [-126, 127], from the exponent bits (``pow2i``)."""
-    return ((n + 127) << 23).view(torch.float32)
+def _window(e_lo: torch.Tensor) -> torch.Tensor:
+    """The kernel's per-block table (``af_window``): exp2_ref(e_lo + i) for
+    i in [0, 2^n_exp), one row per bias."""
+    return tn.exp2_ref(e_lo[..., None] + torch.arange(2 ** SPEC.n_exp, dtype=torch.float32))
 
 
-def _af_quant_fast(x: torch.Tensor, e_lo: torch.Tensor) -> torch.Tensor:
-    """``af_quant_fast`` of csrc/af_gemm.cu, operation for operation."""
+def _power(table: torch.Tensor, e_lo: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``power``: the table's entry at e - e_lo, clamped to the
+    window (NaN reads the first entry)."""
+    i = torch.nan_to_num(e - e_lo, nan=0.0).clamp(0, 2 ** SPEC.n_exp - 1).long()
+    return torch.gather(table, -1, i[..., None])[..., 0]
+
+
+def _af_quant_kernel(x: torch.Tensor, e_lo: torch.Tensor) -> torch.Tensor:
+    """``af_quant`` of csrc/af_gemm.cu, operation for operation."""
     m = SPEC.n_man
     e_hi = e_lo + (2 ** SPEC.n_exp - 1)
     top = torch.tensor(2.0 - 2.0 ** -m)
     p, inv_p = 2.0 ** m, 2.0 ** -m
-    # the window's constants come from ldexpf (exp2_int: the same exact powers)
-    vmax = top * tn.exp2_int(e_hi)
-    flush = tn.exp2_int(e_lo) * 0.5
+    table = _window(e_lo)
+    vmax = top * table[..., -1]
+    flush = tn._flush(table[..., 0] * 0.5)
+    x = tn._flush(x)
     one = torch.ones_like(x)
     sign = torch.where(x > 0, one, torch.where(x < 0, -one, torch.zeros_like(x)))
     ax = x.abs()
     safe = torch.where(ax > 0, ax, torch.ones_like(ax))
     e = torch.clamp(tn.floor_log2(safe), e_lo, e_hi)
-    man = torch.clamp(ax * _pow2(-e.int()), torch.tensor(1.0), top)
+    man = torch.clamp(ax / _power(table, e_lo, e), torch.tensor(1.0), top)
     man_q = torch.round(man * p) * inv_p
     bump = man_q >= 2.0
     e2 = torch.clamp(e + bump.float(), e_lo, e_hi)
     man_q = torch.where(bump & (e2 > e), torch.ones_like(man_q), torch.minimum(man_q, top))
-    q = torch.minimum(man_q * _pow2(e2.int()), vmax)
+    q = torch.minimum(man_q * _power(table, e_lo, e2), vmax)
     q = torch.where(ax < flush, torch.zeros_like(q), q)
     return sign * q
 
 
+def _differ(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Where the float32 bits differ (any NaN equals any NaN)."""
+    nan = torch.isnan(got) & torch.isnan(want)
+    return torch.nonzero((got.view(torch.int32) != want.view(torch.int32)) & ~nan).flatten()
+
+
 def _random_inputs(n_per_bias: int, seed: int = 0):
-    """float32 values whose binades cover each fast bias's window, three
-    binades below it (flush) and two above (saturation), random mantissas
-    and signs; returned with each value's bias."""
+    """float32 values whose binades cover each bias's window, three binades
+    below it (flush) and two above (saturation), random mantissas and
+    signs; returned with each value's bias."""
     rng = np.random.default_rng(seed)
-    biases = np.repeat(np.asarray(FAST_BIASES, np.int64), n_per_bias)
+    biases = np.repeat(np.asarray(BIASES, np.int64), n_per_bias)
     width = 2 ** SPEC.n_exp
     e = biases + rng.integers(-3, width + 2, biases.size)
     biased = np.clip(e + 127, 0, 254).astype(np.uint32)
@@ -101,31 +117,46 @@ def _boundary_inputs(bias: float) -> np.ndarray:
     return np.concatenate([x, -x])
 
 
-def test_fast_window_range_keeps_powers_normal():
-    for bias in FAST_BIASES:
-        for e in range(bias, bias + 2 ** SPEC.n_exp):
-            assert -126 <= e <= 127 and -126 <= -e <= 127
-    assert min(FAST_BIASES) == -126 and max(FAST_BIASES) == 119
+@pytest.mark.parametrize("bias", [float("nan"), float("inf"), -float("inf")])
+def test_fast_window_range_keeps_powers_normal(bias):
+    """Every power in the kernel's window table is 0, a normal float or +inf and
+    equals the plain version's table (``exp2_ref_int``) at every bias; a
+    NaN or an infinite bias gives a table of one repeated value, so that
+    the kernel's clamped index reads what the plain version reads."""
+    e_lo = torch.arange(-140, BIASES.stop, dtype=torch.float32)
+    table = _window(e_lo)
+    assert bool(((table == 0) | (table >= tn.MIN_NORMAL)).all())  # + inf at e = 127
+    want = tn.exp2_ref_int(e_lo[:, None] + torch.arange(2 ** SPEC.n_exp, dtype=torch.float32))
+    assert torch.equal(table, want)
+    odd = _window(torch.tensor([bias]))
+    assert torch.equal(odd.isnan(), odd[:, :1].isnan().expand_as(odd))
+    assert torch.equal(odd.nan_to_num(), odd[:, :1].nan_to_num().expand_as(odd))
+    x = torch.tensor([0.0, 1e-30, -3.0, 1e30, float("inf"), float("nan")])
+    e_lo = torch.full_like(x, bias)
+    assert _differ(_af_quant_kernel(x, e_lo), tn.af_quantize(x, SPEC, exp_bias=e_lo)).numel() == 0
 
 
 def test_af_fast_quantizer_bit_exact_on_2_20_random_inputs():
-    x, bias = _random_inputs(-(-2 ** 20 // len(FAST_BIASES)))
+    x, bias = _random_inputs(-(-2 ** 20 // len(BIASES)))
     assert x.numel() >= 2 ** 20 and bool(torch.isfinite(x).all())
     want = tn.af_quantize(x, SPEC, exp_bias=bias)
-    got = _af_quant_fast(x, bias)
-    bad = torch.nonzero(got.view(torch.int32) != want.view(torch.int32)).flatten()
+    got = _af_quant_kernel(x, bias)
+    bad = _differ(got, want)
     assert bad.numel() == 0, list(zip(x[bad][:8].tolist(), bias[bad][:8].tolist(),
                                      got[bad][:8].tolist(), want[bad][:8].tolist()))
+    # windows whose powers all flush: 0 / 0 below them, NaN as in the reference
+    assert bool(torch.isnan(want[bias <= -133]).any())
+    assert bool(torch.isfinite(want[bias > -133]).all())
 
 
-@pytest.mark.parametrize("bias", [-126.0, -100.0, -10.0, -7.0, -5.0, -3.0, 0.0, 2.0, 60.0,
-                                  119.0])
+@pytest.mark.parametrize("bias", [-135.0, -133.0, -130.0, -126.0, -100.0, -20.0, -10.0, -7.0,
+                                  -5.0, -3.0, 0.0, 2.0, 13.0, 60.0, 119.0, 120.0])
 def test_af_fast_quantizer_bit_exact_on_boundaries(bias):
     x = torch.from_numpy(_boundary_inputs(bias))
     e_lo = torch.full_like(x, bias)
     want = tn.af_quantize(x, SPEC, exp_bias=e_lo)
-    got = _af_quant_fast(x, e_lo)
-    bad = torch.nonzero(got.view(torch.int32) != want.view(torch.int32)).flatten()
+    got = _af_quant_kernel(x, e_lo)
+    bad = _differ(got, want)
     assert bad.numel() == 0, list(zip(x[bad][:8].tolist(), got[bad][:8].tolist(),
                                      want[bad][:8].tolist()))
 

@@ -12,10 +12,10 @@ of cards takes.
 * ``tests/test_target_conformance.py::test_mesh_sharded_batch_parity`` on
   the port: for every planner intrinsic of every target, on 3- and 4-way
   meshes, the compiled and pipelined engines give the unsharded port's
-  outputs bit for bit and the reference's unsharded outputs (bit for bit,
-  VecUnit within its ``tol``: its exp2 differs from JAX's by an ulp,
-  sharded or not); the fused engine gives the unsharded fused outputs bit
-  for bit and stays within ``tol`` of the compiled ones;
+  outputs bit for bit and the reference's unsharded outputs bit for bit,
+  VecUnit's included (the port computes the reference's exp2 and exp);
+  the fused engine gives the unsharded fused outputs bit for bit and stays
+  within ``tol`` of the compiled ones;
 * ``CosimServer`` serves the same bits on a 3-way mesh as without one;
 * the serve launcher's ``--mesh``.
 """
@@ -39,8 +39,8 @@ from repro_torch.launch import serve
 CPU = torch.device("cpu")
 ENGINES = ("compiled", "pipelined", "fused")
 #: targets held to the reference at ``Intrinsic.tol`` rather than bit for
-#: bit (ROADMAP: VecUnit's exp2 and sigmoid round differently in JAX)
-TOL_TARGETS = ("vecunit",)
+#: bit: none (the port computes VecUnit's exp2 and sigmoid as the reference does)
+TOL_TARGETS = ()
 
 
 @pytest.fixture(scope="module", autouse=True)

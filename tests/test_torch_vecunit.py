@@ -1,14 +1,13 @@
 """PyTorch port: the VecUnit ILA against the JAX reference.
 
 * Each VecUnit intrinsic (element-wise mul, sigmoid), planned and
-  simulated, matches the JAX ILA within its declared ``tol`` (1e-3).
-  They are not expected bit for bit: the port builds the grid scale 2^e
-  exactly, while the reference's ``jnp.exp2`` is off by an ulp on the CPU
-  backend at the exponents the driver picks (about -13 to -15), and the
-  two frameworks round the sigmoid's ``exp`` differently. Each differing
-  element is held to one grid step of the output scale.
-* ``EW_START`` on random states with exponents in that range matches the
-  reference the same way, and ``numerics.exp2_int`` is exact there.
+  simulated, equals the JAX ILA bit for bit: the port's grid scale is the
+  reference's ``jnp.exp2`` (``numerics.exp2_ref_int``, an ulp off 2^e at
+  the exponents the fragment builders pick, about -13 to -15) and its sigmoid the
+  reference's ``1 / (1 + jnp.exp(-a))`` (``numerics.exp_f32``).
+* ``EW_START`` on random states with exponents in that range, and at every
+  point of the int16 grids k * 2^ea for ea in {-13, -14, -15}, equals the
+  reference bit for bit in both modes.
 * Within the port, the eager, jit, compiled, pipelined and fused engines
   are bit-identical, and per-stream modes in one batch match eager runs.
 """
@@ -43,13 +42,6 @@ def _run_jax(op, args):
     return np.asarray(JExecutor("ila").run(jir.call(op, *vs), env))
 
 
-def _out_step(op, args):
-    """One grid step of the output scale the driver configures."""
-    if op == "veu_mul":
-        return 2.0 ** tvu._exp_of(args[0] * args[1])
-    return 2.0 ** np.ceil(np.log2(1.0 / tvu.QMAX))
-
-
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 @pytest.mark.parametrize("op", OPS)
 def test_intrinsic_matches_jax_ila(op, seed):
@@ -57,10 +49,17 @@ def test_intrinsic_matches_jax_ila(op, seed):
     want = _run_jax(op, args)
     got = _run_port(op, args)
     assert got.shape == want.shape
-    diff = np.abs(got.astype(np.float64) - want)
-    print(f"{op} seed={seed}: {int((diff > 0).sum())}/{got.size} elements differ")
-    assert validate.frob_rel_err(want, got) <= tvu.TARGET.intrinsics[op].tol
-    assert diff.max() <= _out_step(op, args) * (1 + 1e-6)
+    np.testing.assert_array_equal(got, want)
+
+
+def _ew_start_both(mode, bufs, regs):
+    """``EW_START`` on one state in the reference and in the port."""
+    jst = {k: jnp.asarray(v) for k, v in bufs.items()}
+    jst.update({k: jnp.float32(v) for k, v in regs.items()})
+    tst = {k: torch.from_numpy(v.copy()) for k, v in bufs.items()}
+    tst.update(regs)
+    want = np.asarray(jvu._ew_start(jst, 0, None)["vec_out"])
+    return want, tvu._ew_start(tst, 0, None)["vec_out"].numpy()
 
 
 @pytest.mark.parametrize("mode", [tvu.MODE_MUL, tvu.MODE_SIGMOID])
@@ -70,22 +69,41 @@ def test_ew_start_on_random_states(mode):
             for k in ("vec_a", "vec_b", "vec_out")}
     regs = {"mode": float(mode), "n_rows": 50.0, "n_cols": 37.0,
             "exp_a": -14.0, "exp_b": -15.0, "exp_o": -13.0 if mode == tvu.MODE_MUL else -15.0}
-    jst = {k: jnp.asarray(v) for k, v in bufs.items()}
-    jst.update({k: jnp.float32(v) for k, v in regs.items()})
-    tst = {k: torch.from_numpy(v.copy()) for k, v in bufs.items()}
-    tst.update(regs)
-    want = np.asarray(jvu._ew_start(jst, 0, None)["vec_out"])
-    got = tvu._ew_start(tst, 0, None)["vec_out"].numpy()
-    diff = np.abs(got.astype(np.float64) - want)
-    print(f"mode={mode}: {int((diff > 0).sum())}/{got.size} elements differ")
-    assert diff.max() <= 2.0 ** regs["exp_o"] * (1 + 1e-6)
-    assert validate.frob_rel_err(want, got) <= 1e-3
+    want, got = _ew_start_both(mode, bufs, regs)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("ea", [-13, -14, -15])
+@pytest.mark.parametrize("mode", [tvu.MODE_MUL, tvu.MODE_SIGMOID])
+def test_ew_start_on_every_int16_grid_point(mode, ea):
+    """a = k * 2^ea for every k in [-32767, 32767] (16 states of 4096),
+    b random on the 2^-14 grid, the output grid 2^(ea + 1) for mul and the
+    builders' 2^-14 for sigmoid: bit for bit."""
+    rng = np.random.default_rng(-ea)
+    grid = np.arange(-32767, 32768, dtype=np.float64) * 2.0 ** ea
+    n = tvu.MAX_ROWS * tvu.MAX_COLS
+    grid = np.concatenate([grid, np.zeros(-grid.size % n)]).astype(np.float32)
+    regs = {"mode": float(mode), "n_rows": float(tvu.MAX_ROWS), "n_cols": float(tvu.MAX_COLS),
+            "exp_a": float(ea), "exp_b": -14.0,
+            "exp_o": float(ea + 1) if mode == tvu.MODE_MUL else -14.0}
+    for chunk in grid.reshape(-1, tvu._WORDS, tvu.V):
+        b = np.round(rng.standard_normal(chunk.shape) * 2 ** 13) * 2.0 ** -14
+        bufs = {"vec_a": chunk, "vec_b": b.astype(np.float32),
+                "vec_out": np.zeros_like(chunk)}
+        want, got = _ew_start_both(mode, bufs, regs)
+        np.testing.assert_array_equal(got, want)
 
 
 def test_exp2_int_is_exact_where_the_driver_scales():
+    """The grid scale is the reference's ``jnp.exp2``: exact down to 2^-12,
+    an ulp or more off 2^e at -13, -15 and below (2^-14 is exact)."""
     e = torch.arange(-20, 3, dtype=torch.float32)
-    np.testing.assert_array_equal(tn.exp2_int(e).numpy(),
-                                  np.array([2.0 ** int(v) for v in e], np.float32))
+    want = np.asarray(jnp.exp2(jnp.asarray(e.numpy())))
+    got = tn.exp2_ref_int(e).numpy()
+    np.testing.assert_array_equal(got, want)
+    exact = np.array([2.0 ** int(v) for v in e], np.float32)
+    assert [int(v) for v in e[torch.from_numpy(got != exact)]] == [-20, -19, -18, -17, -16,
+                                                                     -15, -13]
 
 
 @pytest.mark.parametrize("op", OPS)
