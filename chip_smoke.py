@@ -35,11 +35,14 @@ without one). Phases, one line each:
              ``log_f32`` / ``exp_f32`` on 2^20 bit patterns;
              ``af_quantize`` on N(0, sigma^2), sigma 1e-6, 1e-3, 1, 1e3;
              VecUnit's EW_START (mul, sigmoid) on the int16 grids at
-             exponents -13 to -15; and af_gemm with x's largest magnitude at
-             2^13, 2^27, 2^-47, 2^-126, 2^-6, 2^-20, 2^20, 2^100, 2^-122
-             and 2^-124 against its plain version, bit for bit (NaN where
-             the plain version has NaN, which only 2^-126 may have;
-             gated with the kernels)
+             exponents -13 to -15; ``exp2_neg`` at every integer and
+             ``af_quantize`` in both tiers (numerics.tier) on the lattice
+             midpoints, and one ulp each side, of every window from bias
+             -149 to 130; and af_gemm with x's largest magnitude at 2^13,
+             2^27, 2^-47, 2^-126, 2^-6, 2^-20, 2^20, 2^100, 2^-122 and
+             2^-124, and with x on the lattice midpoints of the window
+             [-20, -13], against its plain version, bit for bit, every
+             output finite (gated with the kernels)
 4. resmlp    the paper's Table-4 ResMLP row on FlexASR at the repository's
              configuration: teacher task, 600 training steps, flexible
              matching, then 40 points through the ideal, ILA (compiled),
@@ -355,15 +358,16 @@ FLASH_BF16_STEP = 2.0 ** -7
 #: af_gemm's check at x's largest magnitude 2^k: two powers where
 #: floor(log2) is one below k (in the reference and the port), two where
 #: dividing log(x) by ln 2 gave another exponent than the reference's
-#: multiply, 2^-126 with its window below the normals (the reference's
-#: flushed powers of two: 0 / 0, NaN, for every x below its window), four
-#: whose windows lie outside [-12, 12], where the reference's exp2 is not
-#: the exact power, and two whose windows reach below 2^-126 (their lowest
-#: powers flushed to 0) with finite outputs
+#: multiply, 2^-126 with its window below the normals (its powers of two
+#: flushed to 0: the compiled reference multiplies by their finite
+#: reciprocals, so every output is finite), four whose windows lie outside
+#: [-12, 12], where the reference's exp2 is not the exact power, and two
+#: whose windows reach below 2^-126 (their lowest powers flushed to 0)
 AF_POWERS = (13, 27, -47, -126, -6, -20, 20, 100, -122, -124)
-#: the one af_gemm check whose outputs are NaN (in the kernel and in the
-#: plain version); every other must be finite
-AF_NAN_CASE = "x_max_2^-126"
+#: af_gemm's lattice-midpoint check: x on the midpoints, and one ulp each
+#: side, of the window of this bias ([-20, -13], outside [-15, 8], where
+#: the compiled form's multiply and the eager division round apart)
+AF_MID_BIAS = -20
 #: the af_exponent gate's sigma sweep (af_quantize on seeded N(0, sigma^2))
 AF_SIGMAS = (1e-6, 1e-3, 1.0, 1e3)
 #: the LM serving path: TinyLlama-1.1B, 4 prompts of 1024 tokens, 32 more
@@ -517,6 +521,65 @@ def af_power_case(k: int, rng, dev, spec, m: int = 64, n: int = 32, kk: int = 64
             numerics.af_exp_bias(x @ w.T + b, spec))
 
 
+def af_midpoints(bias: int, spec) -> "np.ndarray":
+    """The positive lattice midpoints of the AdaptivFloat window of
+    ``bias`` (every binade's (2^m + j + 1/2) 2^(e - m), j in [0, 2^m)),
+    each with the float32 one ulp below and one above it (subnormal, 0 or
+    inf where the binade lies outside float32's normals)."""
+    import numpy as np
+
+    m = spec.n_man
+    e = np.arange(bias, bias + 2 ** spec.n_exp, dtype=np.float64)
+    mid = ((2 ** m + np.arange(2 ** m) + 0.5)[None, :] * 2.0 ** (e[:, None] - m)).ravel()
+    with np.errstate(over="ignore"):   # inf past the float32 range
+        mid = mid.astype(np.float32)
+    return np.concatenate([mid, np.nextafter(mid, np.float32(0)),
+                           np.nextafter(mid, np.float32(np.inf))])
+
+
+def af_midpoint_case(rng, dev, spec, m: int = 64, n: int = 32, kk: int = 128) -> tuple:
+    """af_gemm's arguments with x on ``af_midpoints(AF_MID_BIAS)`` (random
+    signs; its largest value puts x's bias at AF_MID_BIAS), w and b random;
+    the biases from ``af_exp_bias`` on ``dev``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.accel import numerics
+
+    mids = af_midpoints(AF_MID_BIAS, spec)
+    xa = rng.choice(mids, (m, kk)) * rng.choice([-1.0, 1.0], (m, kk))
+    xa[0, 0] = mids.max()
+    x, w, b = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (
+        xa, rng.standard_normal((n, kk)), rng.standard_normal((n,)) * 2.0 ** AF_MID_BIAS))
+    return (x, w, b, numerics.af_exp_bias(x, spec), numerics.af_exp_bias(w, spec),
+            numerics.af_exp_bias(x @ w.T + b, spec))
+
+
+def af_signed_zero_case(dev, kk: int, m: int = 16, n: int = 16) -> tuple:
+    """af_gemm's arguments on a grid of one block whose every product is
+    flushed from a tiny negative and whose b is -0: each sum is a zero
+    whose sign the reference's zero padding of K decides (-0 at K = 128,
+    +0 where the last block is short of it)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(kk)
+    x, w, b = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (
+        -np.abs(rng.standard_normal((m, kk))) * 1e-20,
+        np.abs(rng.standard_normal((n, kk))) * 1e-20, np.full(n, -0.0)))
+    return x, w, b, -72.0, -72.0, -10.0
+
+
+def equal_bits(got, want) -> bool:
+    """float32 ``got`` and ``want`` equal bit for bit, signed zeros
+    included, with NaN equal to NaN in the same places."""
+    import torch
+
+    nan = torch.isnan(got)
+    return bool(torch.equal(nan, torch.isnan(want)) and torch.equal(
+        torch.where(nan, 0.0, got).view(torch.int32), torch.where(nan, 0.0, want).view(torch.int32)))
+
+
 def equal_nan(got, want) -> bool:
     """``torch.equal``, with NaN equal to NaN in the same places."""
     import torch
@@ -536,10 +599,13 @@ def af_exponent_card_vs_cpu(dev, spec) -> dict:
     (1,038,590 values; ``af_exp_bias`` at every 256th); ``exp2_ref`` at
     every integer in [-149, 127]; ``log_f32`` and ``exp_f32`` on 2^20
     seeded bit patterns; ``af_quantize`` on seeded N(0, sigma^2) tensors
-    (``AF_SIGMAS``); and
+    (``AF_SIGMAS``); ``exp2_neg`` at every integer in [-149, 127] and
+    ``af_quantize`` in the eager and the compiled tier on the lattice
+    midpoints, one ulp each side, of every window from bias -149 to 130
+    (``af_midpoints``, both signs, each value with its window's bias); and
     VecUnit's ``EW_START``, mul and sigmoid, at every point of the int16
     grids k * 2^ea, ea in {-13, -14, -15}. One ``af_exponent`` line; a
-    differing point fails the run."""
+    point whose float32 bits differ fails the run."""
     import numpy as np
     import torch
 
@@ -573,6 +639,18 @@ def af_exponent_card_vs_cpu(dev, spec) -> dict:
     for sigma in AF_SIGMAS:
         v = torch.from_numpy((rng.standard_normal(1 << 16) * sigma).astype(np.float32))
         cases[f"af_quantize_{sigma:g}"] = (lambda u: numerics.af_quantize(u, spec), v)
+    cases["exp2_neg"] = (numerics.exp2_neg, torch.arange(-149, 128, dtype=torch.float32))
+    mids = [af_midpoints(b, spec) for b in range(-149, 131)]
+    mid_x = torch.from_numpy(np.concatenate([np.concatenate([v, -v]) for v in mids]))
+    mid_bias = torch.from_numpy(np.concatenate(
+        [np.full(2 * v.size, b, np.float32) for b, v in zip(range(-149, 131), mids)]))
+
+    def midpoints(u, tier):
+        with numerics.tier(tier):
+            return numerics.af_quantize(u, spec, exp_bias=mid_bias.to(u.device))
+
+    for tier in ("eager", "compiled"):
+        cases[f"af_quantize_midpoints_{tier}"] = (lambda u, t=tier: midpoints(u, t), mid_x)
 
     def ew_start(mode, ea, device):
         """EW_START over the whole grid k * 2^ea, 4096 points a state."""
@@ -603,7 +681,9 @@ def af_exponent_card_vs_cpu(dev, spec) -> dict:
         else:
             card, cpu = fn(v.to(dev)).cpu(), fn(v)
         nan = torch.isnan(card) & torch.isnan(cpu)
-        bad = torch.nonzero(((card != cpu) & ~nan).reshape(-1)).flatten().tolist()
+        # float32 bits: a zero's sign counts
+        bad = torch.nonzero(((card.view(torch.int32) != cpu.view(torch.int32)) & ~nan)
+                            .reshape(-1)).flatten().tolist()
         flat = v.reshape(-1) if v is not None else None
         out["points"][name] = card.numel()
         out["differ"][name] = [(float(flat[i]) if flat is not None and i < flat.numel()
@@ -616,6 +696,45 @@ def af_exponent_card_vs_cpu(dev, spec) -> dict:
           af_gemm_x_max=",".join(f"2^{k}" for k in AF_POWERS))
     if n_bad:
         raise AssertionError(f"af_exponent: the card differs from the CPU: {n_bad}")
+    return out
+
+
+def ila_linear_order(dev, spec) -> dict:
+    """FlexASR's ILA linear sums ``Xq @ Wq^T`` with torch's matmul at
+    (B, MAX_TS, MAX_IN) by (MAX_OUT, MAX_IN), one K block of 128; the
+    reference's is XLA's dot, the sequential fp32 FMA chain over k that
+    ``kernels.ref.af_block_sums`` computes (``tests/test_torch_af_gemm_order.py``
+    holds both on the CPU). On the card, at B = 1, 8 and 16, the weight
+    shared (the fused tier's matmul) and per sample (the ILA's), on
+    full-mantissa N(0, 1) data and on AdaptivFloat lattices whose powers
+    are inexact (biases -20 and -8): the outputs whose float32 bits
+    differ from the chain. One ``ila_linear_order`` line; a differing
+    output fails the run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.accel import flexasr as fa, numerics
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(29)
+    out = {}
+    for B in (1, 8, 16):
+        for data in ("normal", "af"):
+            x = torch.from_numpy(rng.standard_normal((B, fa.MAX_TS, fa.MAX_IN)).astype(np.float32))
+            w = torch.from_numpy(rng.standard_normal((fa.MAX_OUT, fa.MAX_IN)).astype(np.float32))
+            if data == "af":
+                x = numerics.af_quantize(x * 2e-5, spec, exp_bias=-20.0)
+                w = numerics.af_quantize(w * 0.1, spec, exp_bias=-8.0)
+            x, w = x.to(dev), w.to(dev)
+            chain = ref.af_block_sums(x, w, one_block=True)
+            wb = w.expand(B, *w.shape).contiguous()
+            for form, got in (("shared", x @ w.mT), ("per_sample", x @ wb.mT)):
+                out[f"B{B}_{data}_{form}"] = int((got.view(torch.int32)
+                                                  != chain.view(torch.int32)).sum())
+    phase("ila_linear_order", outputs=sum(B * fa.MAX_TS * fa.MAX_OUT for B in (1, 8, 16)) * 4,
+          **{f"{k}_differ": v for k, v in out.items()})
+    if any(out.values()):
+        raise AssertionError(f"ila_linear_order: torch's matmul is not the chain on the card: {out}")
     return out
 
 
@@ -2735,6 +2854,9 @@ def main() -> int:
         "per_sample_w_3x16x128x64": per_sample_case(3, 16, 128, 64),
         # x's largest magnitude at a power of two (the exponent's hard points)
         **{f"x_max_2^{k}": af_power_case(k, rng, dev, spec) for k in AF_POWERS},
+        f"x_midpoints_{AF_MID_BIAS}": af_midpoint_case(rng, dev, spec),
+        # zero sums whose sign the reference's padding of K sets
+        **{f"signed_zero_1x16x16x{kk}": af_signed_zero_case(dev, kk) for kk in (48, 64, 128)},
     }
     # (B, M, N, K): the fused HLSCNN conv groups (im2col patches of a
     # 16x16x32 activation image against the 5x5x32x32 weight), then ragged
@@ -2783,9 +2905,10 @@ def main() -> int:
             diff = (got.double() - want.double()).nan_to_num(0.0)
             err = float(diff.abs().max()) if got.numel() else 0.0
             worst_kernel[kname] = max(worst_kernel[kname], err)
-            if not equal_nan(got, want):
+            # af_gemm bit for bit, the sign of a zero included
+            if not (equal_bits if kname == "af_gemm" else equal_nan)(got, want):
                 mismatched.append(f"{kname}:{name}")
-            elif name != AF_NAN_CASE and not bool(torch.isfinite(want).all()):
+            elif not bool(torch.isfinite(want).all()):
                 mismatched.append(f"{kname}:{name} (not finite)")
     # (B, Hq, Hkv, S, Sk, D, causal), each in bf16 and in fp32 on the same
     # values: q, k, v made (B, S, H, D) as the models hold them and passed as
@@ -2840,6 +2963,7 @@ def main() -> int:
     report["flash_attention_err"] = flash_err
     report["flash_attention_design"] = flash_design
     report["af_exponent"] = af_exponent_card_vs_cpu(dev, spec)
+    report["ila_linear_order"] = ila_linear_order(dev, spec)
     _, vt3_fasr = fa._vt3_linear(device=dev)
     _, vt3_vta = vta._vt3_gemm(device=dev)
     n_checked = sum(len(c) for c in checks.values()) + len(flash_cases)
@@ -3166,9 +3290,9 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / (iters * reps)
 
-    def call_ms(fn, iters=200):
+    def call_ms(fn, iters=200, warm=10):
         """Wall time per eager call (host launch overhead included)."""
-        for _ in range(10):
+        for _ in range(warm):
             fn()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3287,9 +3411,12 @@ def main() -> int:
     floor_ms = graph_ms(ki8.empty_launch)
     timings = {}
     for kname, name, kern, plain, (b_ms, b_by), lib in timed:
-        # plain, kernel, kernel, plain: the two versions in turns
-        runs = [graph_ms(plain), graph_ms(kern), graph_ms(kern), graph_ms(plain)]
-        calls = [call_ms(kern), call_ms(plain)]
+        # plain, kernel, kernel, plain: the two versions in turns.
+        # af_gemm's plain version runs its fp32 chain one k at a time (a
+        # dozen launches a k, milliseconds a call): fewer calls of it
+        few = {"reps": 2, "iters": 3} if kname == "af_gemm" else {}
+        runs = [graph_ms(plain, **few), graph_ms(kern), graph_ms(kern), graph_ms(plain, **few)]
+        calls = [call_ms(kern), call_ms(plain, **({"iters": 3, "warm": 1} if few else {}))]
         timings[f"{kname}:{name}"] = {
             "ms": min(runs[1:3]), "plain_ms": min(runs[0], runs[3]), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": graph_ms(lib) if lib is not None else None,

@@ -381,6 +381,9 @@ _FNS = [
 
 @flexasr.instruction("fn_start", FN_START, "trigger the configured function")
 def _fn_start(st, addr, data):
+    # the reference's FN_START is a lax.switch, whose six branches XLA
+    # compiles as one computation even in its eager tier: compiled forms
+    # (numerics.tier's default)
     mode = st["mode"]
     if not isinstance(mode, torch.Tensor):
         return branch(int(mode) - 1, _FNS, st)
@@ -1232,9 +1235,10 @@ def _mapping_cases(rng):
     def maxpool_case(device: DeviceLike = None):
         # device-representable inputs (written into the AF8 buffer), as the
         # paper's 0.00% row implies
-        x = numerics.af_quantize(
-            torch.from_numpy(rng.standard_normal((16, 64)).astype(np.float32)), AF
-        ).numpy()
+        with numerics.tier("eager"):   # the reference quantizes op by op here
+            x = numerics.af_quantize(
+                torch.from_numpy(rng.standard_normal((16, 64)).astype(np.float32)), AF
+            ).numpy()
         cmds, rd = build_pool_fragment(x, "max")
         return x.reshape(8, 2, 64).max(1), sim(cmds, rd, device)
 
@@ -1340,7 +1344,8 @@ def _fused_linear(frag: CompiledFragment, device: torch.device) -> FusedRunner:
             return (y * m_ts[:, :, None] * m_out[None, None, :])[:, :, :MAX_IN]
     else:
         lowering = "plain"
-        Wq = _afq(wp_t, bw) * m_out[:, None] * m_in[None, :]
+        with numerics.tier("eager"):   # the reference quantizes it outside jit
+            Wq = _afq(wp_t, bw) * m_out[:, None] * m_in[None, :]
         bvec = bp_t * m_out
         act_fn = _ACTS[act]
 
@@ -1365,8 +1370,9 @@ def _fused_lstm(frag: CompiledFragment, device: torch.device) -> FusedRunner:
     bvec = payload(meta["b_p"], device)
     m_in = payload((np.arange(MAX_IN) < I).astype(np.float32), device)
     m_h = payload((np.arange(MAX_H) < H).astype(np.float32), device)
-    Wi = _afq(payload(wip, device), bw) * m_in[None, :]
-    Wh = _afq(payload(whp, device), bw) * m_h[None, :]
+    with numerics.tier("eager"):   # the reference quantizes them outside jit
+        Wi = _afq(payload(wip, device), bw) * m_in[None, :]
+        Wh = _afq(payload(whp, device), bw) * m_h[None, :]
 
     def batch(x, n_ts, ba, bo):
         B = x.shape[0]

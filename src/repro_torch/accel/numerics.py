@@ -24,17 +24,27 @@ card alike. Three things of the compiled reference are part of it:
 * the multiply-adds XLA's CPU backend contracts into fused multiply-adds
   (its object code has ``vfmadd`` exactly there) are fused here too, in
   float64 and rounded once to float32 (``_fma``, ``_fma_log``);
-* XLA runs with denormals as zero: a subnormal input reads as 0 and a
-  subnormal result is 0 (``_flush``);
+* XLA runs with denormals as zero: a subnormal input reads as a zero of
+  its sign and a subnormal result is one (``_flush``);
 * ``jnp.exp2(e)`` is ``exp(float32(ln 2) * e)``, exact only at some
   integers (-14, -12..12, 14, 16, ..., 28) and 0 at e <= -126, and
   ``jnp.log2(x)`` is ``log(x) * float32(1 / ln 2)`` (XLA compiles the
   division by the constant ln 2 into that multiply).
 
+The reference has two tiers, and ``a / jnp.exp2(e)`` differs between them.
+Run op by op (eager), it divides by ``exp2_ref(e)``. Compiled (``jax.jit``,
+and every ``lax.switch``, whose branches XLA compiles as one computation
+even when called op by op), XLA's algebraic simplifier rewrites
+``A / exp(B)`` into ``A * exp(-B)``: a multiply by ``exp_f32(-(e * LN2))``.
+:func:`div_exp2` computes the form of the tier set by :func:`tier`; the
+default is the compiled one, which the reference's main path runs.
+
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import struct
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -120,9 +130,9 @@ def _fma_log(a: torch.Tensor, b, c) -> torch.Tensor:
 
 
 def _flush(x: torch.Tensor) -> torch.Tensor:
-    """Denormals as zero: a subnormal reads as 0, as XLA's CPU code reads
-    (and writes) it."""
-    return torch.where(torch.abs(x) < MIN_NORMAL, torch.zeros_like(x), x)
+    """Denormals as zero: a subnormal reads as a zero of its sign, as XLA's
+    CPU code reads (and writes) it."""
+    return torch.where(torch.abs(x) < MIN_NORMAL, x * 0.0, x)
 
 
 def log_f32(x: torch.Tensor) -> torch.Tensor:
@@ -180,26 +190,80 @@ def exp2_ref(e) -> torch.Tensor:
     return exp_f32(torch.as_tensor(e, dtype=torch.float32) * LN2)
 
 
-#: exp2_ref is constant at integers below -127 and above 129 (its input
-#: clamps to [-87.8, 88.8]), so a table of [-127, 129] covers every integer;
-#: one more entry, NaN, is exp2_ref(NaN)
-_EXP2_LO, _EXP2_HI = -127, 129
-_EXP2_TABLES: Dict[torch.device, torch.Tensor] = {}
+#: the tables below cover every integer: exp_f32 clamps its input to
+#: [-87.8, 88.8], so exp2_ref is constant below -127 and above 129, and
+#: exp2_neg below -129 and above 127; one more entry, NaN, is their value
+#: at NaN
+_TABLE_LO, _TABLE_HI = -130, 130
+_TABLES: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+
+def _int_table(name: str, fn, e: torch.Tensor) -> torch.Tensor:
+    """``fn(e)`` for integer-valued ``e``, read from a table that ``fn``
+    fills once per device: the same bits in a few tensor ops."""
+    table = _TABLES.get((name, e.device))
+    if table is None:
+        table = fn(torch.arange(_TABLE_LO, _TABLE_HI + 1, dtype=torch.float32,
+                                device=e.device))
+        table = torch.cat([table, table.new_full((1,), float("nan"))])
+        _TABLES[(name, e.device)] = table
+    i = torch.nan_to_num(torch.clamp(e, _TABLE_LO, _TABLE_HI) - _TABLE_LO,
+                         nan=table.numel() - 1)
+    # take, not indexing: a 0-d index would read its value back to the host
+    return torch.take(table, i.long())
 
 
 def exp2_ref_int(e: torch.Tensor) -> torch.Tensor:
     """``exp2_ref(e)`` for integer-valued ``e`` (an exponent: AdaptivFloat's
-    window, VecUnit's grid, VTA's shift), read from a table that
-    ``exp2_ref`` fills once per device: the same bits in a few tensor ops."""
-    table = _EXP2_TABLES.get(e.device)
-    if table is None:
-        table = exp2_ref(torch.arange(_EXP2_LO, _EXP2_HI + 1, dtype=torch.float32,
-                                      device=e.device))
-        table = torch.cat([table, table.new_full((1,), float("nan"))])
-        _EXP2_TABLES[e.device] = table
-    i = torch.nan_to_num(torch.clamp(e, _EXP2_LO, _EXP2_HI) - _EXP2_LO, nan=table.numel() - 1)
-    # take, not indexing: a 0-d index would read its value back to the host
-    return torch.take(table, i.long())
+    window, VecUnit's grid, VTA's shift), from a table."""
+    return _int_table("exp2", exp2_ref, e)
+
+
+def exp2_neg(e) -> torch.Tensor:
+    """``exp(-B)`` for ``B = jnp.exp2``'s argument ``e * LN2``: what the
+    compiled reference multiplies by where it divides by ``jnp.exp2(e)``.
+    The product rounds to float32 before the negation, as in XLA."""
+    return exp_f32(-(torch.as_tensor(e, dtype=torch.float32) * LN2))
+
+
+def exp2_neg_int(e: torch.Tensor) -> torch.Tensor:
+    """``exp2_neg(e)`` for integer-valued ``e``, from a table."""
+    return _int_table("exp2_neg", exp2_neg, e)
+
+
+#: True while the block runs in the reference's eager tier (:func:`tier`)
+_EAGER = contextvars.ContextVar("repro_torch_numerics_eager", default=False)
+
+
+@contextlib.contextmanager
+def tier(name: str):
+    """Run the block in the form of the reference's ``"eager"`` or
+    ``"compiled"`` tier (:func:`div_exp2`). Compiled is the default: every
+    instruction that quantizes (FlexASR's FN_START, VTA's ALU) has its
+    reference body in a ``lax.switch``, compiled in every tier of the
+    reference, ``simulate`` included. The eager form is set only where the
+    reference quantizes outside any switch or ``jit``: the fused runners'
+    weights and the Table-2 MaxPool case's input."""
+    if name not in ("eager", "compiled"):
+        raise ValueError(f"unknown tier {name!r}")
+    token = _EAGER.set(name == "eager")
+    try:
+        yield
+    finally:
+        _EAGER.reset(token)
+
+
+def div_exp2(a: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """The reference's ``a / jnp.exp2(e)`` for integer-valued ``e``, in the
+    current tier's form, denormals flushed: eager divides by ``exp2_ref(e)``;
+    compiled multiplies by ``exp2_neg(e)``. The two differ where the power
+    is inexact and ``a`` is near a rounding boundary of the caller (an
+    AdaptivFloat lattice midpoint, say), and where ``exp2_ref(e)`` is 0
+    (e <= -126: eager divides by 0, compiled multiplies by a finite or
+    infinite power)."""
+    if _EAGER.get():
+        return _flush(a / exp2_ref_int(e))
+    return _flush(a * exp2_neg_int(e))
 
 
 def floor_log2(x: torch.Tensor) -> torch.Tensor:
@@ -242,7 +306,8 @@ def af_quantize(
     x: torch.Tensor, spec: AdaptivFloatSpec = AdaptivFloatSpec(), exp_bias: Optional[Bias] = None
 ) -> torch.Tensor:
     """Round ``x`` to the nearest AdaptivFloat-representable value, as the
-    reference's ``af_quantize`` does, operation for operation.
+    reference's ``af_quantize`` does, operation for operation, in the form
+    of the current tier (:func:`tier`; its mantissa is :func:`div_exp2`).
 
     ``exp_bias`` is an integer, as a number or a tensor that broadcasts
     against ``x`` (a batch of per-sample biases shaped ``(B, 1, ...)``)."""
@@ -253,14 +318,14 @@ def af_quantize(
     e_hi = e_lo + (2 ** spec.n_exp - 1)
     m = spec.n_man
     top = 2.0 - 2.0 ** (-m)
-    sign = torch.sign(xf)
+    # jnp.sign: +-0 and NaN are their own sign (torch.sign gives 0 for both)
+    sign = torch.where(torch.abs(xf) > 0, torch.sign(xf), xf)
     ax = torch.abs(xf)
     # exponent of each value, clamped into the representable window
     safe = torch.where(ax > 0, ax, torch.ones_like(ax))
     e = torch.clamp(floor_log2(safe), e_lo, e_hi)
-    scale = exp2_ref_int(e)
-    # mantissa in [1, 2): round to m bits
-    man = torch.clamp(ax / scale, 1.0, top)
+    # mantissa in [1, 2): round to m bits (ax / jnp.exp2(e) in the reference)
+    man = torch.clamp(div_exp2(ax, e), 1.0, top)
     man_q = torch.round(man * 2.0 ** m) / 2.0 ** m
     # rounding can push mantissa to 2.0 -> bump exponent (saturating)
     bump = man_q >= 2.0

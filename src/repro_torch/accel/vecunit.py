@@ -26,7 +26,10 @@ file — no ``repro_torch/core`` module mentions this backend.
 The grid scale is the reference's ``jnp.exp2(e)`` (``numerics.exp2_ref_int``:
 an ulp off 2^e at the exponents the fragment builders pick, about -13 to -15) and the
 sigmoid its ``1 / (1 + jnp.exp(-a))`` (``numerics.exp_f32``), so the port
-gives the reference's bits.
+gives the reference's bits. The division onto the grid, ``x / jnp.exp2(e)``,
+is a division in every tier of the reference, compiled too (unlike
+AdaptivFloat's, ``numerics.div_exp2``): its ``jnp.exp2(e)`` has a second
+use, which keeps XLA from rewriting it.
 """
 from __future__ import annotations
 
@@ -121,6 +124,8 @@ def _q16(x, exp, dev):
     """int16 block fixed point: round onto the 2^exp grid, saturate. ``exp``
     is a number or a per-stream tensor shaped to broadcast against x."""
     scale = numerics.exp2_ref_int(torch.as_tensor(exp, dtype=torch.float32, device=dev))
+    # a division in every tier: XLA rewrites A / exp(B) only where exp(B)
+    # has no other use, and the reference's scale has the product
     return torch.clamp(torch.round(x / scale), -QMAX, QMAX) * scale
 
 

@@ -152,8 +152,9 @@ def _gemm(st, addr, data):
 _ALU_OPS = [
     lambda ab: ab[0] + ab[1],
     lambda ab: torch.maximum(ab[0], ab[1]),
-    # arithmetic >>: floor(a / 2^b), 2^b as the reference's jnp.exp2 (b an integer)
-    lambda ab: torch.floor(ab[0] / numerics.exp2_ref_int(ab[1])),
+    # arithmetic >>: the reference's floor(a / jnp.exp2(b)) (b an integer), in
+    # a lax.switch, so compiled in every tier (numerics.tier's default)
+    lambda ab: torch.floor(numerics.div_exp2(ab[0], ab[1])),
     lambda ab: torch.minimum(ab[0], ab[1]),
 ]
 

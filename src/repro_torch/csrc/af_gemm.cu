@@ -6,8 +6,8 @@
 //     out[z] = AFq_o(AFq_x(x[z]) @ AFq_w(w[z])^T + b[z])
 //
 // in AdaptivFloat(n_bits, n_exp) with per-tensor exponent biases (one per
-// sample where the caller gives one), fp32 accumulation and a bias +
-// re-quantization epilogue. The fused FlexASR runner's whole group (B = 8:
+// sample where the caller gives one), fp32 sums in the reference's order
+// and a bias + re-quantization epilogue. The fused FlexASR runner's whole group (B = 8:
 // per-sample activation and output biases, one weight tensor) is one call;
 // the Executor's kernel mode is the same call with B = 1. A batch stride of
 // 0 shares an operand across the batch. Callers pass unpadded tensors.
@@ -25,8 +25,8 @@
 //    during this tile's FMAs); each thread owns 2x2 outputs and per k reads
 //    one 8-byte pair of x (the same for a warp's lanes) and one of w
 //    (consecutive across lanes), a shared-memory wavefront each for four
-//    float64 FMAs per lane; then b[n] and the output quantizer on its 4 outputs at
-//    once. The tile is 32x32 where that gives at least 132 blocks (a fused
+//    fp32 FMAs per lane; then b[n] and the output quantizer on its 4
+//    outputs at once. The tile is 32x32 where that gives at least 132 blocks (a fused
 //    group: 256 blocks at B = 8), else 16x16, else 8x8 (kernel mode: 16,
 //    32, 16 and 2 blocks for ResMLP's tok, fc1, fc2 and head).
 //
@@ -35,40 +35,41 @@
 // whole pass either way, and the stream orders two launches with nothing
 // co-resident to guarantee; a CUDA graph replays them back to back.
 //
-// Sum order. Each output is acc = 0, then fma(xq[k], wq[k], acc) in float64
-// for k ascending, then + b[n] in float64, one rounding to fp32, then the
-// quantizer; the plain version is a float64 GEMM (cuBLAS's order) with the
-// same bias add and rounding. A product of two fp32 values is exact in
-// float64. Where every power of the windows is exact (the reference's exp2
-// is 2^e at -14 and -12..12), a quantized value carries 5 significant bits,
-// so each product 10 and a sum of K of them spans at most 16 binades + 10
-// + log2 K bits: exact in float64 in any order, the same bits as the plain
-// version by construction. Elsewhere a quantized value is 5 bits times an
-// exp2 an ulp or more off 2^e, 24 bits, and no order is exact: the float64
-// sums of the two orders round to one fp32 value unless the sum lies
-// within a few float64 ulps (2^-29 of an fp32 ulp) of an fp32 rounding
-// boundary, which the card checks at every shape and magnitude have not
-// met. fp32 sums (the reference's Pallas kernel sums in fp32) did give
-// another output in the two orders at such a window (100 x 50 x 200,
-// inputs at 1e-6), so this is a departure from the reference's precision,
-// held against it in ROADMAP Queue 3. No split-K and no mma/wgmma. Nor would they pay:
-// a fused B = 8 group is 67 MFLOP over 1.70 MB, 39 FLOP per byte, far
-// below the ~295 at which the bf16 tensor cores and not the memory bound
-// an H100; at the 34 TFLOP/s fp64 rate its products take 2.0 us.
+// Sum order: the reference's Pallas kernel, compiled by XLA for the CPU.
+// It pads K to a multiple of 128 and adds each 128-wide block's dot into
+// an fp32 total; XLA's CPU dot at 128 x 128 x 128 is acc = 0, then acc =
+// fma(xq[k], wq[k], acc) for k ascending, bit for bit. So each output is
+// that fp32 __fmaf_rn chain, restarted at 0 every 128 k (the stage loop
+// folds it into the total every 128 / BK tiles; a padded k would add
+// fma(0, 0, acc): acc, but +0 for a -0 acc, added once where a block is
+// short), then __fadd_rn(total, b[n]), every result with
+// denormals flushed to zeros of their sign as XLA's CPU code runs. Where
+// the grid is one block (B = 1, M, N and K at most 128) XLA simplifies
+// 0 + acc to acc, so the total is the first block's acc itself: only the
+// sign of a zero sum depends on it. The plain version
+// (kernels/ref.py::af_block_sums) is the same chain in tensor ops, exact
+// FMAs included. No split-K and no mma/wgmma: the tensor cores do not sum
+// in this order. Nor would they pay: a fused B = 8 group is 67 MFLOP over
+// 1.70 MB, 39 FLOP per byte, far below the ~295 at which the bf16 tensor
+// cores and not the memory bound an H100; at the 67 TFLOP/s fp32 rate its
+// products take 1.0 us.
 //
 // The quantizer is the plain version's (repro_torch/accel/numerics.py::
 // af_quantize), which is the reference's as XLA compiles it for the CPU,
-// operation for operation: the exponent floor(log_f32(x) * float32(1 / ln
-// 2)), every power of two exp2_ref(e) = exp_f32(float32(ln 2) * e) (an ulp
-// or more off 2^e at most e outside [-12, 12], 0 at e <= -126), the
-// mantissa ax / exp2_ref(e) (an IEEE division, as the plain version
-// divides), rintf (round half to even), the exponent clamp, the mantissa
-// clamp and its bump to 2.0, saturation at the top and the flush below
-// vmin / 2, with denormals read and written as zero and NaN carried
-// through every clamp and minimum as torch carries it. A window's 2^n_exp
-// powers, vmax and flush point are computed once per block into shared
-// memory (Window), as the plain version reads them from a table of
-// exp2_ref at the integers. log_f32 and exp_f32 are Cephes's polynomials
+// operation for operation, in its compiled form (numerics.tier): the
+// exponent floor(log_f32(x) * float32(1 / ln 2)), every power of two
+// exp2_ref(e) = exp_f32(float32(ln 2) * e) (an ulp or more off 2^e at most
+// e outside [-12, 12], 0 at e <= -126), the mantissa ax * exp2_neg(e) =
+// ax * exp_f32(-(float32(ln 2) * e)) (XLA rewrites the reference's ax /
+// exp2(e) into that product; finite where exp2_ref(e) is 0, down to a
+// window top of -127), rintf (round half to even), the exponent clamp,
+// the mantissa clamp and its bump to 2.0, saturation at the top and the
+// flush below vmin / 2, with denormals read and written as zeros of their
+// sign, jnp.sign's +-0 and NaN, and NaN carried through every clamp and
+// minimum as torch carries it. A window's 2^n_exp powers and their
+// reciprocals, vmax and flush point are computed once per block into
+// shared memory (Window), as the plain version reads them from tables of
+// exp2_ref and exp2_neg at the integers. log_f32 and exp_f32 are Cephes's polynomials
 // as XLA's CPU code evaluates them: __fmaf_rn exactly where that code
 // fuses a multiply-add, __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn
 // everywhere else, so that -fmad=true (which the product loop keeps)
@@ -79,8 +80,8 @@
 // 1.05 MB of output; 1.70 MB at 3.35 TB/s is 0.51 us, and the bytes bound
 // it (the products take 0.07 us on the bf16 tensor cores, where AF(8,3)
 // values are exact). What sets the pace is latency and instruction count:
-// a quantization is ~80 dependent instructions (the log polynomial and a
-// division), so it runs once per element across the whole card with 4
+// a quantization is ~80 dependent instructions (the log polynomial), so it
+// runs once per element across the whole card with 4
 // independent elements per thread, and the product runs one 8-byte shared
 // load per two FMAs over 4 outputs per thread and at least 132 blocks.
 // Each of the two launches then costs about what a launch of a small
@@ -94,6 +95,8 @@ namespace {
 constexpr int QT = 32;                 // quantize pass: QT x QT tiles,
 constexpr int QTHREADS = QT * QT / 4;  // 4 elements per thread
 constexpr int BK = 32;         // product: K rows staged per cp.async stage
+constexpr int AF_BK = 128;     // the reference's K block (kernels/ref.py AF_BK)
+static_assert(AF_BK % BK == 0, "a K block is whole stages");
 constexpr int STAGES = 2;      // product: cp.async ring depth
 constexpr int MAX_N_EXP = 5;   // exponent field bits (kernels/af_gemm.py checks)
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
@@ -102,8 +105,10 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
 __device__ __forceinline__ float minf(float a, float b) {
   return (a != a || b != b) ? a + b : fminf(a, b);  // NaN wins, as in torch.minimum
 }
-// denormals as zero, as XLA's CPU code reads and writes them
-__device__ __forceinline__ float flush(float x) { return fabsf(x) < 0x1p-126f ? 0.0f : x; }
+// denormals as zeros of their sign, as XLA's CPU code reads and writes them
+__device__ __forceinline__ float flush(float x) {
+  return fabsf(x) < 0x1p-126f ? copysignf(0.0f, x) : x;
+}
 // 2^n for n in [-126, 127], from the exponent bits
 __device__ __forceinline__ float pow2i(int n) { return __int_as_float((n + 127) << 23); }
 
@@ -177,12 +182,17 @@ __device__ float exp_f32(float x) {
 
 // numerics.exp2_ref: jnp.exp2 as XLA computes it
 __device__ __forceinline__ float exp2_ref(float e) { return exp_f32(__fmul_rn(e, F32(LN2))); }
+// numerics.exp2_neg: exp(-B) for B = e * ln 2, what XLA multiplies by in
+// place of a division by exp2(e)
+__device__ __forceinline__ float exp2_neg(float e) { return exp_f32(-__fmul_rn(e, F32(LN2))); }
 
 // One exponent window's constants, computed once per block in shared
-// memory: its 2^n_exp powers exp2_ref(e_lo + i), the plain version's table
-// (numerics.exp2_ref_int) at the window's exponents, and what comes of them.
+// memory: its 2^n_exp powers exp2_ref(e_lo + i) and their reciprocals
+// exp2_neg(e_lo + i), the plain version's tables (numerics.exp2_ref_int,
+// exp2_neg_int) at the window's exponents, and what comes of them.
 struct Window {
   float scale[1 << MAX_N_EXP];
+  float rscale[1 << MAX_N_EXP];
   float e_lo, e_hi, last, top, p, inv_p, vmax, flush;
 };
 
@@ -190,8 +200,10 @@ struct Window {
 __device__ void af_window(Window& w, float e_lo, int n_exp, int n_man) {
   const int last = (1 << n_exp) - 1;
   for (int i = threadIdx.x; i <= last; i += blockDim.x) {
-    const float s = exp2_ref(__fadd_rn(e_lo, (float)i));
+    const float e = __fadd_rn(e_lo, (float)i);
+    const float s = exp2_ref(e);
     w.scale[i] = s;
+    w.rscale[i] = exp2_neg(e);
     if (i == 0) w.flush = flush(__fmul_rn(s, 0.5f));
     if (i == last) w.vmax = __fmul_rn(__fsub_rn(2.0f, pow2i(-n_man)), s);
   }
@@ -206,24 +218,24 @@ __device__ void af_window(Window& w, float e_lo, int n_exp, int n_man) {
   __syncthreads();
 }
 
-// exp2_ref(e) for e in [e_lo, e_hi], from the window's table (a NaN or an
-// infinite window reads its first entry: every entry is then the same)
-__device__ __forceinline__ float power(const Window& w, float e) {
-  return w.scale[(int)fminf(fmaxf(__fsub_rn(e, w.e_lo), 0.0f), w.last)];
+// table[e - e_lo] for e in [e_lo, e_hi] (a NaN or an infinite window reads
+// its first entry: every entry is then the same)
+__device__ __forceinline__ float power(const Window& w, const float* table, float e) {
+  return table[(int)fminf(fmaxf(__fsub_rn(e, w.e_lo), 0.0f), w.last)];
 }
 
 __device__ float af_quant(float x, const Window& w) {
   x = flush(x);
-  const float sign = (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
+  const float sign = (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : x);  // jnp.sign
   const float ax = fabsf(x);
   const float safe = ax > 0.0f ? ax : 1.0f;
   const float e = clampf(floorf(__fmul_rn(log_f32(safe), F32(INV_LN2))), w.e_lo, w.e_hi);
-  const float man = clampf(__fdiv_rn(ax, power(w, e)), 1.0f, w.top);
+  const float man = clampf(flush(__fmul_rn(ax, power(w, w.rscale, e))), 1.0f, w.top);
   float man_q = __fmul_rn(rintf(__fmul_rn(man, w.p)), w.inv_p);
   const bool bump = man_q >= 2.0f;
   const float e2 = clampf(__fadd_rn(e, bump ? 1.0f : 0.0f), w.e_lo, w.e_hi);
   man_q = (bump && e2 > e) ? 1.0f : minf(man_q, w.top);
-  float q = minf(__fmul_rn(man_q, power(w, e2)), w.vmax);
+  float q = minf(__fmul_rn(man_q, power(w, w.scale, e2)), w.vmax);
   if (ax < w.flush) q = 0.0f;
   return __fmul_rn(sign, q);
 }
@@ -309,12 +321,14 @@ __device__ __forceinline__ void cp_async_wait() {
 // multiples of 4. Thread (tx, ty) owns rows 2ty, 2ty+1 and columns 2tx,
 // 2tx+1 of the tile: per k one 8-byte load of x (the same for the warp's
 // lanes of one ty) and one of w (consecutive across lanes), 4 FMAs.
+// one_block: the grid is one 128-cube block (see "Sum order").
 template <int BM, int BN>
 __global__ void __launch_bounds__(BM * BN / 4)
 af_product_kernel(const float* __restrict__ xq, const float* __restrict__ wq,
                   const float* __restrict__ b, const float* __restrict__ bo,
                   float* __restrict__ out, int M, int N, int K, int Mp, int Np,
-                  long long wq_bs, long long b_bs, int bo_bs, int n_exp, int n_man) {
+                  long long wq_bs, long long b_bs, int bo_bs, int n_exp, int n_man,
+                  int one_block) {
   constexpr int T = BM * BN / 4;
   constexpr int TX = BN / 2;
   constexpr int VX = BM / 4, VW = BN / 4;  // 16-byte vectors per row of a tile
@@ -348,7 +362,8 @@ af_product_kernel(const float* __restrict__ xq, const float* __restrict__ wq,
     }
   };
 
-  double acc[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
+  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  float total[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
   const int nk = (K + BK - 1) / BK;
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) {
@@ -365,22 +380,37 @@ af_product_kernel(const float* __restrict__ xq, const float* __restrict__ wq,
     for (int k = 0; k < BK; ++k) {
       const float2 a = *reinterpret_cast<const float2*>(&xs[s][k][2 * ty]);
       const float2 w2 = *reinterpret_cast<const float2*>(&ws[s][k][2 * tx]);
-      const double ax = a.x, ay = a.y, wx = w2.x, wy = w2.y;
-      acc[0][0] = fma(ax, wx, acc[0][0]);
-      acc[0][1] = fma(ax, wy, acc[0][1]);
-      acc[1][0] = fma(ay, wx, acc[1][0]);
-      acc[1][1] = fma(ay, wy, acc[1][1]);
+      acc[0][0] = flush(__fmaf_rn(a.x, w2.x, acc[0][0]));
+      acc[0][1] = flush(__fmaf_rn(a.x, w2.y, acc[0][1]));
+      acc[1][0] = flush(__fmaf_rn(a.y, w2.x, acc[1][0]));
+      acc[1][1] = flush(__fmaf_rn(a.y, w2.y, acc[1][1]));
+    }
+    // the end of a 128-wide block of k (or of K): into the total, restart
+    if ((t + 1) % (AF_BK / BK) == 0 || t == nk - 1) {
+      // a block short of 128 ends with the reference's padded k, fma(0, 0,
+      // acc): +0 for a -0 acc (the zero-filled rows of a short stage
+      // already did it)
+      const float pad = (t == nk - 1 && K % AF_BK != 0) ? 0.0f : -0.0f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          acc[i][j] = __fadd_rn(acc[i][j], pad);
+          total[i][j] = one_block ? acc[i][j] : flush(__fadd_rn(total[i][j], acc[i][j]));
+          acc[i][j] = 0.0f;
+        }
     }
   }
   cp_async_wait<0>();
 
-  // + b[n], then the output quantizer on the 4 outputs at once
+  // + b[n] (read with denormals as zero), then the output quantizer on the
+  // 4 outputs at once
   const int m = m0 + 2 * ty, n = n0 + 2 * tx;
-  const double b0 = n < N ? b[n] : 0.0f, b1 = n + 1 < N ? b[n + 1] : 0.0f;
-  const float4 y = af_quant4(make_float4(__double2float_rn(__dadd_rn(acc[0][0], b0)),
-                                         __double2float_rn(__dadd_rn(acc[0][1], b1)),
-                                         __double2float_rn(__dadd_rn(acc[1][0], b0)),
-                                         __double2float_rn(__dadd_rn(acc[1][1], b1))),
+  const float b0 = n < N ? flush(b[n]) : 0.0f, b1 = n + 1 < N ? flush(b[n + 1]) : 0.0f;
+  const float4 y = af_quant4(make_float4(flush(__fadd_rn(total[0][0], b0)),
+                                         flush(__fadd_rn(total[0][1], b1)),
+                                         flush(__fadd_rn(total[1][0], b0)),
+                                         flush(__fadd_rn(total[1][1], b1))),
                              win);
   if (m < M) {
     if (n < N) out[(long long)m * N + n] = y.x;
@@ -402,8 +432,9 @@ int launch_product(const float* xq, const float* wq, const float* b, const float
                    float* out, int B, int M, int N, int K, int Mp, int Np, long long wq_bs,
                    long long b_bs, int bo_bs, int n_exp, int n_man, cudaStream_t stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, B);
+  const int one_block = B == 1 && M <= AF_BK && N <= AF_BK && K <= AF_BK;
   af_product_kernel<BM, BN><<<grid, BM * BN / 4, 0, stream>>>(
-      xq, wq, b, bo, out, M, N, K, Mp, Np, wq_bs, b_bs, bo_bs, n_exp, n_man);
+      xq, wq, b, bo, out, M, N, K, Mp, Np, wq_bs, b_bs, bo_bs, n_exp, n_man, one_block);
   return (int)cudaGetLastError();
 }
 

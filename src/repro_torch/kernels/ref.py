@@ -60,6 +60,85 @@ def _bias(v, like: torch.Tensor) -> torch.Tensor:
     return t
 
 
+#: the reference's Pallas af_gemm sums K in blocks of this width
+#: (``repro/kernels/ops.py`` pads every operand to its 128 defaults)
+AF_BK = 128
+
+
+def _fma_step(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``_flush(_fma(a, b, c))`` for float64 ``a`` and ``b`` holding float32
+    values and float32 ``c``: one exactly rounded fused multiply-add,
+    denormals flushed. The product is exact in float64 and the float64 sum
+    ``s`` is rounded once, so ``s.float()`` rounds twice; that gives
+    another float32 than the exact sum only where ``s`` lies halfway
+    between two normal float32s. Where it does, and where the result is
+    not 0 and at most 2^-126 (subnormal, or the normals' edge, whose
+    rounding the subnormal grid decides), ``numerics._fma`` recomputes
+    it; elsewhere ``s.float()`` is the answer."""
+    s = torch.addcmul(c, a, b)
+    r = s.float()
+    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    tiny = (r != 0) & (r.abs() <= numerics.MIN_NORMAL)
+    redo = tie | tiny
+    # the CPU skips a recomputation that changes nothing; the card does not
+    # read back (a CUDA graph capture refuses it), so it always recomputes
+    if r.device.type != "cpu" or bool(redo.any()):
+        r = torch.where(redo, numerics._flush(numerics._fma(a, b, c)), r)
+    return r
+
+
+#: on the CPU the chain runs in pieces of at most this many outputs: torch
+#: splits a larger op over its threads, and the chain's ops are many and
+#: small, so that threads sharing the cores with other processes cost far
+#: more than they save (six processes at once on an 8-core Xeon: 76 s a
+#: call in whole ops, 1 s in pieces)
+CPU_PIECE = 1 << 14
+
+
+def af_block_sums(xq: torch.Tensor, wq: torch.Tensor, one_block: bool = False) -> torch.Tensor:
+    """``xq @ wq^T`` summed as the reference's Pallas af_gemm sums it on
+    the CPU: per block of :data:`AF_BK` k, from k = 0, ``acc = 0`` then
+    ``acc = fma(xq[k], wq[k], acc)`` for k ascending (XLA's CPU dot at
+    128 x 128 x 128 is that chain, bit for bit), each block's ``acc`` added
+    into a float32 total that starts at 0, in order; denormals flushed to
+    zeros of their sign at every step.
+
+    ``one_block``: the kernel's grid is one block (one sample, M, N and K
+    at most 128). XLA then unrolls the grid loop and simplifies ``0 + acc``
+    to ``acc``, so a -0 sum (products flushed from tiny negatives) stays -0
+    where a larger grid's total makes it +0.
+
+    The reference pads K with zeros to a multiple of 128; a padded k adds
+    fma(0, 0, acc), which is acc except that a -0 acc reads +0. So the last
+    block stops at K and, where it is short of 128, adds +0 once. The chain
+    runs one k at a time, vectorised over the outputs (:func:`_fma_step`;
+    on the CPU over :data:`CPU_PIECE` of them at a time)."""
+    xq, wq = xq.float(), wq.float()
+    if xq.device.type == "cpu":
+        rows = max(1, CPU_PIECE // (torch.broadcast_shapes(xq.shape[:-2], wq.shape[:-2]).numel()
+                                    * wq.shape[-2]))
+        if rows < xq.shape[-2]:
+            return torch.cat([_chain(xq[..., i:i + rows, :], wq, one_block)
+                              for i in range(0, xq.shape[-2], rows)], dim=-2)
+    return _chain(xq, wq, one_block)
+
+
+def _chain(xq: torch.Tensor, wq: torch.Tensor, one_block: bool) -> torch.Tensor:
+    """:func:`af_block_sums` on float32 operands, all outputs at once."""
+    x64, w64 = xq.double(), wq.double()
+    K = xq.shape[-1]
+    shape = torch.broadcast_shapes(xq.shape[:-2], wq.shape[:-2]) + (xq.shape[-2], wq.shape[-2])
+    total = torch.zeros(shape, dtype=torch.float32, device=xq.device)
+    for k0 in range(0, K, AF_BK):
+        acc = torch.zeros_like(total)
+        for k in range(k0, min(k0 + AF_BK, K)):
+            acc = _fma_step(x64[..., :, k, None], w64[..., None, :, k], acc)
+        if k0 + AF_BK > K:
+            acc = acc + 0.0   # the padded k
+        total = acc if one_block else numerics._flush(total + acc)
+    return total
+
+
 def af_gemm_ref(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -69,22 +148,25 @@ def af_gemm_ref(
     exp_bias_o,
     spec: AdaptivFloatSpec = AF83,
 ) -> torch.Tensor:
-    """FlexASR LinearLayer semantics: AFq(AFq(x) @ AFq(w)^T + b).
+    """FlexASR LinearLayer semantics: AFq(AFq(x) @ AFq(w)^T + b), as the
+    reference's Pallas ``af_gemm`` computes it (compiled: the quantizer's
+    compiled form, :func:`af_block_sums`, then ``+ b`` in float32).
 
     x: (M, K) or (B, M, K); w: (N, K) or (B, N, K); b: (N,) or (B, N).
     Biases are numbers, 0-d tensors or per-sample ``(B,)`` tensors. A
     per-sample weight bias on a shared (N, K) weight quantizes one copy of
     the weight per sample, each with its sample's bias, as the kernel does.
-    The product and the bias add run in float64, rounded once to fp32.
     """
     if w.dim() == 2 and torch.as_tensor(exp_bias_w).dim() == 1:
         w = w.expand(len(exp_bias_w), *w.shape)
-    xq = numerics.af_quantize(x, spec, exp_bias=_bias(exp_bias_x, x))
-    wq = numerics.af_quantize(w, spec, exp_bias=_bias(exp_bias_w, w))
-    # float64 sums of exact products, rounded once to fp32 (csrc/af_gemm.cu
-    # "Sum order": exact, so in any order, wherever the windows' powers are)
-    y = (xq.double() @ wq.double().mT + b.double().unsqueeze(-2)).float()
-    return numerics.af_quantize(y, spec, exp_bias=_bias(exp_bias_o, y))
+    one = max(x.shape[-2], w.shape[-2], x.shape[-1]) <= AF_BK and max(
+        x.shape[:-2].numel(), w.shape[:-2].numel(), b.shape[:-1].numel()) == 1
+    with numerics.tier("compiled"):
+        xq = numerics.af_quantize(x, spec, exp_bias=_bias(exp_bias_x, x))
+        wq = numerics.af_quantize(w, spec, exp_bias=_bias(exp_bias_w, w))
+        # b read with denormals as zero, as XLA reads it
+        y = numerics._flush(af_block_sums(xq, wq, one) + numerics._flush(b.float()).unsqueeze(-2))
+        return numerics.af_quantize(y, spec, exp_bias=_bias(exp_bias_o, y))
 
 
 #: the Pallas kernel's finite mask value (``repro/kernels/flash_attention.py``)

@@ -5,13 +5,16 @@ card; these tests hold, on the CPU, the two claims that make them equal
 their plain versions bit for bit:
 
 * af_gemm's quantizer reads each power of two from a table of its
-  window's 2^n_exp powers, ``exp2_ref(e_lo + i)``, filled once per block,
-  where the plain version reads ``exp2_ref_int``'s table, and divides the
-  magnitude by it as the plain version does. Written here in torch exactly
+  window's 2^n_exp powers, ``exp2_ref(e_lo + i)``, and of what the compiled
+  reference multiplies by in their place, ``exp2_neg(e_lo + i)``, filled
+  once per block, where the plain version reads ``exp2_ref_int``'s and
+  ``exp2_neg_int``'s tables, and multiplies the magnitude by the second as
+  the plain version's compiled form does. Written here in torch exactly
   as the kernel writes it, it equals ``accel/numerics.py::af_quantize``
   bitwise on 2^20 float32 inputs spread over every bias from -135 to 120
-  (windows from all below the normals to the top binade: NaN where the
-  reference's flushed powers divide 0 by 0), and on the boundary set of
+  (windows from all below the normals to the top binade: NaN only at
+  -135, whose powers are all 0 and their reciprocals all infinite, as in
+  the compiled reference), and on the boundary set of
   ``tests/test_torch_numerics.py`` (powers of two and the floats just
   below them, lattice midpoints, vmin/2, the saturation edge, 4.5). The
   kernel keeps its scratch in fp32, so no bf16 round trip is involved.
@@ -35,10 +38,11 @@ SPEC = tn.AdaptivFloatSpec(8, 3)
 BIASES = range(-135, 128 - (2 ** SPEC.n_exp - 1) + 1)
 
 
-def _window(e_lo: torch.Tensor) -> torch.Tensor:
-    """The kernel's per-block table (``af_window``): exp2_ref(e_lo + i) for
-    i in [0, 2^n_exp), one row per bias."""
-    return tn.exp2_ref(e_lo[..., None] + torch.arange(2 ** SPEC.n_exp, dtype=torch.float32))
+def _window(e_lo: torch.Tensor):
+    """The kernel's per-block tables (``af_window``): exp2_ref(e_lo + i) and
+    exp2_neg(e_lo + i) for i in [0, 2^n_exp), one row per bias."""
+    e = e_lo[..., None] + torch.arange(2 ** SPEC.n_exp, dtype=torch.float32)
+    return tn.exp2_ref(e), tn.exp2_neg(e)
 
 
 def _power(table: torch.Tensor, e_lo: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
@@ -54,16 +58,16 @@ def _af_quant_kernel(x: torch.Tensor, e_lo: torch.Tensor) -> torch.Tensor:
     e_hi = e_lo + (2 ** SPEC.n_exp - 1)
     top = torch.tensor(2.0 - 2.0 ** -m)
     p, inv_p = 2.0 ** m, 2.0 ** -m
-    table = _window(e_lo)
+    table, recip = _window(e_lo)
     vmax = top * table[..., -1]
     flush = tn._flush(table[..., 0] * 0.5)
     x = tn._flush(x)
     one = torch.ones_like(x)
-    sign = torch.where(x > 0, one, torch.where(x < 0, -one, torch.zeros_like(x)))
+    sign = torch.where(x > 0, one, torch.where(x < 0, -one, x))
     ax = x.abs()
     safe = torch.where(ax > 0, ax, torch.ones_like(ax))
     e = torch.clamp(tn.floor_log2(safe), e_lo, e_hi)
-    man = torch.clamp(ax / _power(table, e_lo, e), torch.tensor(1.0), top)
+    man = torch.clamp(tn._flush(ax * _power(recip, e_lo, e)), torch.tensor(1.0), top)
     man_q = torch.round(man * p) * inv_p
     bump = man_q >= 2.0
     e2 = torch.clamp(e + bump.float(), e_lo, e_hi)
@@ -124,13 +128,13 @@ def test_fast_window_range_keeps_powers_normal(bias):
     NaN or an infinite bias gives a table of one repeated value, so that
     the kernel's clamped index reads what the plain version reads."""
     e_lo = torch.arange(-140, BIASES.stop, dtype=torch.float32)
-    table = _window(e_lo)
-    assert bool(((table == 0) | (table >= tn.MIN_NORMAL)).all())  # + inf at e = 127
-    want = tn.exp2_ref_int(e_lo[:, None] + torch.arange(2 ** SPEC.n_exp, dtype=torch.float32))
-    assert torch.equal(table, want)
-    odd = _window(torch.tensor([bias]))
-    assert torch.equal(odd.isnan(), odd[:, :1].isnan().expand_as(odd))
-    assert torch.equal(odd.nan_to_num(), odd[:, :1].nan_to_num().expand_as(odd))
+    e = e_lo[:, None] + torch.arange(2 ** SPEC.n_exp, dtype=torch.float32)
+    for table, want in zip(_window(e_lo), (tn.exp2_ref_int(e), tn.exp2_neg_int(e))):
+        assert bool(((table == 0) | (table >= tn.MIN_NORMAL)).all())  # + inf at the ends
+        assert torch.equal(table, want)
+    for odd in _window(torch.tensor([bias])):
+        assert torch.equal(odd.isnan(), odd[:, :1].isnan().expand_as(odd))
+        assert torch.equal(odd.nan_to_num(), odd[:, :1].nan_to_num().expand_as(odd))
     x = torch.tensor([0.0, 1e-30, -3.0, 1e30, float("inf"), float("nan")])
     e_lo = torch.full_like(x, bias)
     assert _differ(_af_quant_kernel(x, e_lo), tn.af_quantize(x, SPEC, exp_bias=e_lo)).numel() == 0
@@ -144,9 +148,10 @@ def test_af_fast_quantizer_bit_exact_on_2_20_random_inputs():
     bad = _differ(got, want)
     assert bad.numel() == 0, list(zip(x[bad][:8].tolist(), bias[bad][:8].tolist(),
                                      got[bad][:8].tolist(), want[bad][:8].tolist()))
-    # windows whose powers all flush: 0 / 0 below them, NaN as in the reference
-    assert bool(torch.isnan(want[bias <= -133]).any())
-    assert bool(torch.isfinite(want[bias > -133]).all())
+    # a window whose powers all flush and whose reciprocals are all infinite
+    # (-135): 0 * inf below it, NaN as in the compiled reference
+    assert bool(torch.isnan(want[bias <= -135]).any())
+    assert bool(torch.isfinite(want[bias > -135]).all())
 
 
 @pytest.mark.parametrize("bias", [-135.0, -133.0, -130.0, -126.0, -100.0, -20.0, -10.0, -7.0,

@@ -29,7 +29,9 @@ def _jax_q(x, bias):
 
 
 def _port_q(x, bias):
-    return tn.af_quantize(torch.from_numpy(x), T_SPEC, exp_bias=bias).numpy()
+    """The port's eager form, as ``_jax_q`` runs the reference op by op."""
+    with tn.tier("eager"):
+        return tn.af_quantize(torch.from_numpy(x), T_SPEC, exp_bias=bias).numpy()
 
 
 def _boundary_inputs(bias):
@@ -182,8 +184,9 @@ def test_af_quantize_equals_the_reference_at_every_power_of_two():
 
     x = _powers_and_neighbours()
     want = np.asarray(jax.vmap(lambda a: jn.af_quantize(a, J_SPEC))(jnp.asarray(x[:, None])))[:, 0]
-    got = np.array([float(tn.af_quantize(torch.from_numpy(x[i:i + 1]), T_SPEC)[0])
-                    for i in range(x.size)], np.float32)
+    with tn.tier("eager"):   # jax.vmap runs the reference op by op
+        got = np.array([float(tn.af_quantize(torch.from_numpy(x[i:i + 1]), T_SPEC)[0])
+                        for i in range(x.size)], np.float32)
     np.testing.assert_array_equal(got, want)
     # off the exact lattice where the reference's exp2 misses the power
     mant, _ = np.frexp(np.abs(got[got != 0]).astype(np.float64))
